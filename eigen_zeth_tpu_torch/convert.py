@@ -1,0 +1,56 @@
+"""Converters from the JAX package's values to the port's tensors and back.
+
+They take what the JAX package hands out on the host — numpy arrays and
+python ints — so this module imports neither package's JAX code:
+
+  GF(lo, hi) uint32 planes      <-> int64 tensor of canonical Goldilocks values
+  (16, B) uint32 limb planes    <-> (16, B) int32 tensor (same 16-bit limbs)
+  a ProvingKey / VerifyingKey / R1CS of the JAX package -> the port's
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models import groth16
+
+
+def gf_to_tensor(lo, hi, device) -> torch.Tensor:
+    """GF(lo, hi) uint32 planes -> int64 tensor of the same uint64 values."""
+    v = np.asarray(lo, dtype=np.uint64) | (np.asarray(hi, dtype=np.uint64) << np.uint64(32))
+    return torch.from_numpy(np.ascontiguousarray(v).view(np.int64)).to(device)
+
+
+def tensor_to_gf(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """int64 Goldilocks tensor -> (lo, hi) numpy uint32 planes."""
+    v = np.ascontiguousarray(x.detach().cpu().numpy()).view(np.uint64)
+    return (v & np.uint64(0xFFFFFFFF)).astype(np.uint32), (v >> np.uint64(32)).astype(np.uint32)
+
+
+def limbs_to_tensor(limbs, device) -> torch.Tensor:
+    """(16, ...) uint32 limb planes -> int32 tensor (limbs are < 2^16)."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(limbs, dtype=np.uint32)).astype(np.int32)).to(device)
+
+
+def tensor_to_limbs(x: torch.Tensor) -> np.ndarray:
+    """(16, ...) int32 limb tensor -> uint32 numpy planes."""
+    return x.detach().cpu().numpy().astype(np.uint32)
+
+
+def _same_fields(cls, obj):
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
+def r1cs_from(r1cs) -> groth16.R1CS:
+    return _same_fields(groth16.R1CS, r1cs)
+
+
+def proving_key_from(pk) -> groth16.ProvingKey:
+    return _same_fields(groth16.ProvingKey, pk)
+
+
+def verifying_key_from(vk) -> groth16.VerifyingKey:
+    return _same_fields(groth16.VerifyingKey, vk)

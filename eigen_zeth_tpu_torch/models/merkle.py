@@ -1,0 +1,95 @@
+"""Poseidon Merkle tree — port of eigen_zeth_tpu/models/merkle.py.
+
+Every level is one batched 2-to-1 Poseidon compression on the device; the
+levels stay there.  Openings gather the queried siblings of every level on
+the device and bring them to the host in one transfer.  Verification is
+host math (python ints).
+
+The tensors may carry leading batch axes: `commit_leaves` on (K, N, k)
+rows commits K same-shape trees at once (the batched chunk prover), and
+`open_batched` opens all of them with one transfer.  The TPU package's
+padded programs (`PaddedMerkleTree`, the `PAD_*` geometry, the native
+host engine) answer that backend's compile cost and are not carried over.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+from ..ops import goldilocks as gl
+from ..ops import poseidon
+
+
+def commit_digests(leaf_digests: torch.Tensor) -> List[torch.Tensor]:
+    """Levels over (..., N, 4) leaf digests, N a power of two:
+    [leaves, ..., root (..., 1, 4)]."""
+    n = leaf_digests.shape[-2]
+    assert n & (n - 1) == 0 and n >= 1
+    levels = [leaf_digests]
+    cur = leaf_digests
+    while cur.shape[-2] > 1:
+        cur = poseidon.hash_two(cur[..., 0::2, :], cur[..., 1::2, :])
+        levels.append(cur)
+    return levels
+
+
+def open_batched(levels: List[torch.Tensor], idx: torch.Tensor) -> np.ndarray:
+    """Sibling digests for leaf indices idx (..., Q) of trees whose levels
+    are (..., N_l, 4): one device gather per level, one host transfer.
+    Returns uint64 (..., Q, depth, 4), bottom-up."""
+    cur = idx
+    sibs = []
+    for level in levels[:-1]:
+        sib = (cur ^ 1)[..., None].expand(cur.shape + (4,))
+        sibs.append(torch.gather(level, -2, sib))
+        cur = cur >> 1
+    if not sibs:
+        return np.zeros(tuple(idx.shape) + (0, 4), dtype=np.uint64)
+    return gl.to_int(torch.stack(sibs, dim=-2))
+
+
+def roots(levels: List[torch.Tensor]) -> np.ndarray:
+    """Root digests of (batched) trees as uint64 (..., 4), one transfer."""
+    return gl.to_int(levels[-1][..., 0, :])
+
+
+@dataclass
+class MerkleTree:
+    """levels[0] = leaf digests (N, 4) ... levels[-1] = root (1, 4)."""
+
+    levels: List[torch.Tensor]
+
+    def root(self) -> list[int]:
+        return [int(v) for v in roots(self.levels)]
+
+    def open(self, index: int) -> list[list[int]]:
+        """Sibling digests bottom-up for one leaf index (host ints)."""
+        return self.open_many([index])[0]
+
+    def open_many(self, indices) -> list[list[list[int]]]:
+        """[paths[q][level][4] for q in indices]."""
+        idx = torch.as_tensor(list(indices), dtype=torch.int64, device=self.levels[0].device)
+        digs = open_batched(self.levels, idx)
+        return [[[int(v) for v in lv] for lv in path] for path in digs]
+
+
+def commit_leaves(leaves: torch.Tensor) -> List[torch.Tensor]:
+    """Hash (..., N, k) rows to digests, then build the levels."""
+    return commit_digests(poseidon.hash_elements(leaves))
+
+
+def verify_path(root: list[int], index: int, leaf_values: list[int], path: list[list[int]]) -> bool:
+    """Host-side path check: leaf row -> digest -> fold siblings to root."""
+    digest = poseidon.hash_elements_host([int(v) for v in leaf_values])
+    idx = index
+    for sib in path:
+        if idx & 1:
+            digest = poseidon.hash_two_host(sib, digest)
+        else:
+            digest = poseidon.hash_two_host(digest, sib)
+        idx >>= 1
+    return digest == [int(v) for v in root]
