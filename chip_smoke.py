@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the batch proof (`eigen_zeth_tpu_torch`,
-`BatchProver(wrap="mimc", recursion=False)`), through its four
-ProverService steps on the card, and checks every stage:
+Drives the port's main paths (`eigen_zeth_tpu_torch`) on the card through
+the entry points a user calls, and checks every stage:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions
-  2. builds the CUDA kernels from eigen_zeth_tpu_torch/csrc with nvcc
+  2. builds the four CUDA kernels from eigen_zeth_tpu_torch/csrc with nvcc
   3. holds each kernel against its plain PyTorch version, bit for bit, at
-     the slice's shapes, and times both (CUDA events, median)
+     its path's shape (A and B at 32 windows x 1,326 MSM points, C and D at
+     20 windows x 8,192 lanes), times both (CUDA events around runs of
+     back-to-back launches, median), works out each kernel's bound from
+     its bytes and multiply-adds, and checks that kernel C equals sign
+     select, kernel D, restart select
   4. proves the tiny golden configuration on the card and checks its
      sha256 digests against tests/data/torch_slice_golden.json
-  5. proves the slice: 7,200 synthetic blocks (9 chunks of 4,096-row
-     traces), default StarkParams, the MiMC Groth16 wrap; checks every
-     chunk proof with verify_chunk and the final proof with groth16.verify,
-     and requires that both kernels were launched in that run
+  5. the batch proof, `BatchProver(wrap="mimc", recursion=False)`: 7,200
+     synthetic blocks (9 chunks of 4,096-row traces), default StarkParams,
+     the MiMC Groth16 wrap; checks every chunk proof with verify_chunk and
+     the final proof with groth16.verify
+  6. the fast G1 MSM at 2^18 distinct points, c = 13, serial 32, window
+     group 32: `bad` is False, the result equals one host scalar
+     multiplication of G by Σ s_i·k_i, kernel C was launched 32 times; then
+     a small input with a duplicated point, where `bad` rises and the
+     result still equals the host's
+  7. KZG: a 4,096-point SRS made on the card, commit and opening of a
+     4,096-coefficient polynomial, verify True, a wrong value False
+  8. the unsafe mixed add through `bn254.point_madd_unsafe` (kernel D) on
+     2^17 pairs of distinct points, against the complete add and the host
 
-It prints a JSON line with each kernel's numbers, then, as its last line,
+Before each of the paths 5-8 the launch counts are set to 0, and read just
+after: every kernel of that path must have been launched.  It prints a JSON
+line with each kernel's numbers, then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises; without a CUDA
 device it exits non-zero before proving anything.
 """
@@ -37,8 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from eigen_zeth_tpu_torch.models import groth16, stark
-from eigen_zeth_tpu_torch.ops import bn254, kernels
+from eigen_zeth_tpu_torch.models import groth16, kzg, stark
+from eigen_zeth_tpu_torch.ops import bn254, kernels, msm
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
 
@@ -47,7 +61,27 @@ GOLDEN = ROOT / "tests" / "data" / "torch_slice_golden.json"
 SLICE_BLOCKS = 7200
 MSM_POINTS = 1326  # variables of the MiMC wrap circuit
 KERNEL_BATCH = 32 * MSM_POINTS  # 32 windows of c = 8 over the MSM's points
+MSM_LOG2 = 18  # the fast MSM's size: 2^18 points
+MSM_C, MSM_SERIAL, MSM_GROUP = 13, 32, 32
+STEP_BATCH = 20 * (1 << MSM_LOG2) // MSM_SERIAL  # 20 windows x 8,192 lanes: kernel C's batch
+KZG_SIZE = 4096  # coefficients of one EIP-4844 blob
 CHAIN_ID = 12345
+
+# The card's peak rates for the bounds (NVIDIA H100 SXM data sheet): device
+# memory 3.35 TB/s; 32-bit integer multiply-adds at a quarter of the
+# 67 TFLOP/s float32 figure, which counts two operations per FMA on 128
+# lanes per SM where the integer pipe has 64 lanes and one multiply-add each.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MADS_PER_S = 67e12 / 4
+MADS_PER_MONT_MUL = 8 * 8 + 8 * 8 + 8  # a·b, m·q and the eight m = t0·n0
+# per element: bytes moved (each (16,) int32 limb plane 64 B, each mask 4 B,
+# inputs read once, outputs written once) and Montgomery products
+KERNEL_WORK = {
+    "mont_mul": (3 * 64, 1),
+    "point_add": (9 * 64, 23),
+    "point_scan_step": (8 * 64 + 3 * 4, 11),
+    "point_madd": (8 * 64 + 4, 11),
+}
 AGGREGATOR = "0x" + "11" * 20
 
 
@@ -55,20 +89,68 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Median time of fn() on the card over reps runs (after one warm-up)."""
+def cuda_time_ms(fn, reps: int, groups: int = 3) -> float:
+    """Time of one fn() on the card in ms: the median over `groups` runs of
+    `reps` back-to-back calls, each run between two CUDA events, after one
+    warm-up call.  Back to back, the host's cost of enqueueing a call
+    overlaps the card's work on the one before.  The inputs stay the same,
+    so whatever fits the 50 MB L2 cache is found there."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_profile(tag: str, fn) -> None:
+    """Run fn() once under torch.profiler and log the card's share of it:
+    wall time, device busy time (the sum of the kernels' durations on the
+    one stream), kernel count, and the five kernels with the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        log(f"[{tag}] profiler: no device activity recorded; busy share not measured")
+        return
+    busy = sum(r[1] for r in rows) / 1e6
+    log(f"[{tag}] profiler: wall {wall:.4f} s (profiled), device busy {busy:.4f} s = "
+        f"{100 * busy / wall:.1f}%, {sum(r[2] for r in rows)} device kernels")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:5]:
+        log(f"[{tag}]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def bound(name: str, n: int) -> dict:
+    """The least time the card could take for one launch of `name` on n
+    elements: the larger of bytes over the memory rate and multiply-adds
+    over the integer rate."""
+    nbytes, muls = KERNEL_WORK[name]
+    by_bytes = n * nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n * muls * MADS_PER_MONT_MUL / INT32_MADS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}  # no PyTorch call computes any of the four
+
+
+def require_launches(path: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
 
 
 def _check(result) -> None:
@@ -141,6 +223,7 @@ def phase_kernels(device) -> dict:
     if not torch.equal(got, ref):
         raise AssertionError(f"mont_mul disagrees with its plain version (max abs err {err})")
     results["mont_mul"] = {
+        "shape": KERNEL_BATCH, **bound("mont_mul", KERNEL_BATCH),
         "max_abs_err": err,
         "ms": cuda_time_ms(lambda: kernels.mont_mul(ctx, a, b), 50),
         "plain_ms": cuda_time_ms(lambda: kernels.mont_mul_plain(ctx, a, b), 10),
@@ -173,14 +256,101 @@ def phase_kernels(device) -> dict:
         if have != want:
             raise AssertionError(f"point_add edge case {i} is wrong")
     results["point_add"] = {
+        "shape": KERNEL_BATCH, **bound("point_add", KERNEL_BATCH),
         "max_abs_err": err,
         "ms": cuda_time_ms(lambda: kernels.point_add(ctx, p, q), 50),
         "plain_ms": cuda_time_ms(lambda: kernels.point_add_plain(ctx, p, q), 5),
     }
+    results.update(_phase_step_kernels(device, rng))
     for name, r in results.items():
-        log(f"[kernels] {name}: bit-exact vs plain at (16, {KERNEL_BATCH}); "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        log(f"[kernels] {name}: bit-exact vs plain at (16, {r.pop('shape')}); "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return results
+
+
+def _phase_step_kernels(device, rng) -> dict:
+    """Kernels C and D at the fast MSM's step batch, against their plain
+    versions and against each other."""
+    ctx = bn254.fq()
+    Q = bn254.Q
+    n = STEP_BATCH
+    pts = [bn254.h_ec_mul(k, bn254.G1_GEN) for k in range(1, 5)]
+    neg = lambda p: (p[0], (-p[1]) % Q)  # noqa: E731
+    P = pts[0]
+    edge = [  # (accumulator, point, sign, flag, bad of C, bad of D)
+        ((0, 0, 0), pts[1], 0, 1, 0, 1),        # all-zero accumulator under a flag
+        ((0, 0, 0), pts[1], 1, 1, 0, 1),
+        (P + (1,), P, 0, 0, 1, 1),              # P + P
+        (P + (1,), neg(P), 0, 0, 1, 1),         # P + (-P)
+        (P + (1,), P, 1, 0, 1, 1),              # the sign makes it P + (-P)
+        (pts[2] + (0,), pts[3], 0, 0, 1, 1),    # accumulator at infinity
+        (P + (1,), P, 0, 1, 0, 1),              # the same three under a flag
+        (P + (1,), neg(P), 0, 1, 0, 1),
+        (pts[2] + (0,), pts[3], 1, 1, 0, 1),
+        (pts[2] + (1,), (pts[3][0], 0), 1, 0, 0, 0),  # y = 0 and sign set
+        (pts[2] + (1,), (pts[3][0], 0), 1, 1, 0, 0),
+        (pts[0] + (1,), pts[1], 0, 0, 0, 0),    # honest adds: G + 2G, G - 2G
+        (pts[0] + (1,), pts[1], 1, 0, 0, 0),
+    ]
+    m = n - len(edge)
+    cols = [[e[0][k] for e in edge] + _random_fq(rng, m) for k in range(3)]
+    cols += [[e[1][k] for e in edge] + _random_fq(rng, m) for k in range(2)]
+    ax, ay, az, bx, by = (ctx.from_int(c, device) for c in cols)
+    sgn = torch.tensor([e[2] for e in edge] + rng.integers(0, 2, m).tolist(),
+                       dtype=torch.int32, device=device)
+    flg = torch.tensor([e[3] for e in edge] + rng.integers(0, 2, m).tolist(),
+                       dtype=torch.int32, device=device)
+    acc, q_aff = (ax, ay, az), (bx, by)
+
+    def compare(name, got, ref):
+        err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{name} disagrees with its plain version (max abs err {err})")
+        return err
+
+    got_c = kernels.point_scan_step(ctx, acc, q_aff, sgn, flg)
+    err_c = compare("point_scan_step", got_c, kernels.point_scan_step_plain(ctx, acc, q_aff, sgn, flg))
+    got_d = kernels.point_madd(ctx, acc, q_aff)
+    err_d = compare("point_madd", got_d, kernels.point_madd_plain(ctx, acc, q_aff))
+    torch.cuda.synchronize()
+
+    # the edge cases mean what they should
+    k = len(edge)
+    if got_c[3][:k].tolist() != [e[4] for e in edge] or got_d[3][:k].tolist() != [e[5] for e in edge]:
+        raise AssertionError("bad planes of the edge cases are wrong")
+    one = ctx.one_mont((1,), device)[:, 0]
+    if not (torch.equal(got_c[2][:, 0], one) and int(got_c[1][:, 10].abs().sum()) == 0):
+        raise AssertionError("restart under a flag, or -0 = 0, is wrong")
+    F = bn254.FqOps()
+    hx, hy = bn254.to_affine(F, bn254.PointJ(*(t[:, 11:13].contiguous() for t in got_c[:3])))
+    have = list(zip(map(int, ctx.to_int(hx)), map(int, ctx.to_int(hy))))
+    if have != [bn254.h_ec_add(pts[0], pts[1]), bn254.h_ec_add(pts[0], neg(pts[1]))]:
+        raise AssertionError("the scan step's honest adds are not the curve's")
+
+    # kernel C == sign select, then kernel D, then the restart select
+    negate, restart = sgn != 0, flg != 0
+    qy2 = torch.where(negate, ctx.neg(by), by)
+    dx, dy, dz, dbad = kernels.point_madd(ctx, acc, (bx, qy2))
+    composed = (torch.where(restart, bx, dx), torch.where(restart, qy2, dy),
+                torch.where(restart, one[:, None], dz), dbad * (1 - flg))
+    if not all(torch.equal(g, r) for g, r in zip(got_c, composed)):
+        raise AssertionError("kernel C differs from select, kernel D, restart")
+    log(f"[kernels] point_scan_step == sign select + point_madd + restart select at (16, {n})")
+
+    return {
+        "point_scan_step": {
+            "shape": n, **bound("point_scan_step", n), "max_abs_err": err_c,
+            "ms": cuda_time_ms(lambda: kernels.point_scan_step(ctx, acc, q_aff, sgn, flg), 50),
+            "plain_ms": cuda_time_ms(
+                lambda: kernels.point_scan_step_plain(ctx, acc, q_aff, sgn, flg), 5),
+        },
+        "point_madd": {
+            "shape": n, **bound("point_madd", n), "max_abs_err": err_d,
+            "ms": cuda_time_ms(lambda: kernels.point_madd(ctx, acc, q_aff), 50),
+            "plain_ms": cuda_time_ms(lambda: kernels.point_madd_plain(ctx, acc, q_aff), 5),
+        },
+    }
 
 
 def _sha(s: str) -> str:
@@ -231,9 +401,7 @@ def phase_slice(device) -> dict:
         raise AssertionError("the final Groth16 proof does not verify")
     if len(base64.b64decode(r1.batch_data)) != 32 * SLICE_BLOCKS + 64:
         raise AssertionError("unexpected batch payload size")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    require_launches("batch proof", launches, ("mont_mul", "point_add"))
 
     log(f"[slice] {SLICE_BLOCKS} blocks, {r1.chunk_count} chunks of 4096 rows, mimc wrap")
     for step, s in times.items():
@@ -245,6 +413,179 @@ def phase_slice(device) -> dict:
     return launches
 
 
+def _host_eval(coeffs, z: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * z + c) % bn254.R
+    return acc
+
+
+def test_points(device):
+    """2^18 distinct G1 points on the card with their discrete logs."""
+    t = time.perf_counter()
+    xs, ys, dlogs = msm.gen_test_points(MSM_LOG2, device=device)
+    torch.cuda.synchronize()
+    log(f"[msm] gen_test_points({MSM_LOG2}) (host scalar multiplications + one device combine): "
+        f"{time.perf_counter() - t:.3f} s")
+    return xs, ys, dlogs
+
+
+def phase_msm(device, points) -> dict:
+    """The fast G1 MSM at 2^18 points through `msm.msm_g1_device`."""
+    n = 1 << MSM_LOG2
+    rng = np.random.default_rng(18)
+    xs, ys, dlogs = points
+    scalars = [int.from_bytes(rng.bytes(32), "little") % bn254.R for _ in range(n)]
+    t = time.perf_counter()
+    want = bn254.h_ec_mul_jac_f(sum(s * k for s, k in zip(scalars, dlogs)) % bn254.R, bn254.G1_GEN)
+    t_oracle = time.perf_counter() - t
+    inf = torch.zeros(n, dtype=torch.bool, device=device)
+    limbs = msm._limbs_tensor(scalars, device)
+
+    # the inner function shows `bad`; its first call also warms the card up
+    windows = lambda: msm._msm_g1_fast_windows(  # noqa: E731
+        xs, ys, inf, limbs, MSM_C, MSM_SERIAL, MSM_GROUP)
+    *_, bad = windows()
+    if bool(bad):
+        raise AssertionError("the fast MSM raised `bad` on distinct points")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    windows()
+    torch.cuda.synchronize()
+    t_device = time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    got = msm.msm_g1_device(xs, ys, inf, scalars, c=MSM_C, serial=MSM_SERIAL,
+                            window_group=MSM_GROUP)
+    torch.cuda.synchronize()
+    t_entry = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    if got != want:
+        raise AssertionError("the 2^18 MSM differs from the host oracle")
+    if launches["point_scan_step"] != MSM_SERIAL:
+        raise AssertionError(f"kernel C launched {launches['point_scan_step']} times, "
+                             f"expected {MSM_SERIAL}")
+    require_launches("fast MSM", launches, ("mont_mul", "point_add", "point_scan_step"))
+
+    log(f"[msm] 2^{MSM_LOG2} points, c = {MSM_C}, serial {MSM_SERIAL}, window group {MSM_GROUP}: "
+        "bad = False, result equals the host oracle")
+    log(f"[msm] host oracle (one scalar multiplication of G by Σ s_i·k_i): {t_oracle:.3f} s")
+    log(f"[msm] device part alone (digits to affine window sums, synchronised): "
+        f"{t_device:.4f} s = {n / t_device:.0f} points/s")
+    log(f"[msm] msm_g1_device end to end (host scalar limbs and Horner included): "
+        f"{t_entry:.4f} s = {n / t_entry:.0f} points/s")
+    log(f"[msm] max_memory_allocated: {peak / 2**20:.1f} MiB")
+    log(f"[msm] launches: {launches}")
+    device_profile("msm", windows)
+
+    # a duplicated point under one scalar: `bad` rises, the result stands
+    m = 64
+    small = msm.host_points(bn254.FqOps(), xs[:, :m], ys[:, :m], inf[:m])
+    small[9] = small[8]
+    sc = scalars[:m]
+    sc[9] = sc[8]
+    sx, sy, sinf = (t[..., :m].contiguous().clone() for t in (xs, ys, inf))
+    sx[:, 9], sy[:, 9] = sx[:, 8], sy[:, 8]
+    *_, bad = msm._msm_g1_fast_windows(sx, sy, sinf, msm._limbs_tensor(sc, device), 8, 32, 32)
+    if not bool(bad):
+        raise AssertionError("a duplicated point did not raise `bad`")
+    oracle = None
+    for pt, k in zip(small, sc):
+        oracle = bn254.h_ec_add(oracle, bn254.h_ec_mul_jac_f(k, pt))
+    if msm.msm_g1_device(sx, sy, sinf, sc, c=8) != oracle:
+        raise AssertionError("the collision fallback differs from the host oracle")
+    log(f"[msm] {m} points with one duplicated: bad = True, the complete-add schedule "
+        "recomputes, result equals the host's")
+    return launches
+
+
+def phase_kzg(device) -> dict:
+    """KZG at one blob's size: SRS on the card, commit, open, verify."""
+    rng = np.random.default_rng(4844)
+    draw = lambda k: [int.from_bytes(rng.bytes(32), "little") % bn254.R for _ in range(k)]  # noqa: E731
+    tau, z = draw(2)
+    coeffs = draw(KZG_SIZE)
+    total = {name: 0 for name in kernels.LAUNCHES}
+    steps = {}
+
+    def run(step, fn):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[step] = (time.perf_counter() - t, dict(kernels.LAUNCHES))
+        for name, k in kernels.LAUNCHES.items():
+            total[name] += k
+        return out
+
+    torch.cuda.reset_peak_memory_stats(device)
+    srs = run("setup_insecure", lambda: kzg.setup_insecure(KZG_SIZE, tau, device))
+    commitment = run("commit", lambda: kzg.commit(srs, coeffs))
+    proof, y = run("open_at", lambda: kzg.open_at(srs, coeffs, z))
+    peak = torch.cuda.max_memory_allocated(device)
+    t = time.perf_counter()
+    ok = kzg.verify(srs, commitment, z, y, proof)
+    rejected = not kzg.verify(srs, commitment, z, (y + 1) % bn254.R, proof)
+    t_verify = time.perf_counter() - t
+
+    host = srs.g1_points_host()
+    for i in (0, 1, 2, KZG_SIZE - 1):
+        if host[i] != bn254.h_ec_mul_jac_f(pow(tau, i, bn254.R), bn254.G1_GEN):
+            raise AssertionError(f"SRS point {i} is not [tau^{i}]G1")
+    if y != _host_eval(coeffs, z):
+        raise AssertionError("open_at's value differs from the host evaluation")
+    if not ok or not rejected:
+        raise AssertionError(f"verify: right value {ok}, wrong value rejected {rejected}")
+    require_launches("KZG commit", steps["commit"][1], ("mont_mul", "point_add", "point_scan_step"))
+    require_launches("KZG open", steps["open_at"][1], ("mont_mul", "point_add", "point_scan_step"))
+
+    log(f"[kzg] {KZG_SIZE}-point SRS on the card, {KZG_SIZE} coefficients: verify True, "
+        "a wrong value rejected, p(z) equals the host evaluation")
+    for step, (secs, counts) in steps.items():
+        log(f"[kzg] {step}: {secs:.3f} s, launches {counts}")
+    log(f"[kzg] verify twice (host pairing): {t_verify:.3f} s")
+    log(f"[kzg] max_memory_allocated: {peak / 2**20:.1f} MiB")
+    device_profile("kzg commit", lambda: kzg.commit(srs, coeffs))
+    device_profile("kzg setup_insecure", lambda: kzg.setup_insecure(KZG_SIZE, tau, device))
+    return total
+
+
+def phase_madd(device, points) -> dict:
+    """`bn254.point_madd_unsafe` (kernel D) on 2^17 pairs of distinct points,
+    against the complete add (kernel B) and the host."""
+    F = bn254.FqOps()
+    xs, ys, _ = points
+    half = xs.shape[1] // 2
+    ax, ay, bx, by = (t.contiguous() for t in (xs[:, :half], ys[:, :half], xs[:, half:], ys[:, half:]))
+    p = bn254.from_affine(F, ax, ay)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out, bad = bn254.point_madd_unsafe(F, p, bx, by)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    require_launches("mixed add", launches, ("point_madd",))
+    if bool(bad.any()):
+        raise AssertionError("the mixed add raised `bad` on distinct points")
+    full = msm.ECGroup(F).add(p, bn254.from_affine(F, bx, by))
+    got, ref = bn254.to_affine(F, out), bn254.to_affine(F, full)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("the mixed add differs from the complete add")
+    k = 4
+    pts = msm.host_points(F, xs[:, [0, 1, 2, 3, half, half + 1, half + 2, half + 3]],
+                          ys[:, [0, 1, 2, 3, half, half + 1, half + 2, half + 3]],
+                          torch.zeros(2 * k, dtype=torch.bool))
+    have = list(zip(map(int, F.to_int(got[0][:, :k])), map(int, F.to_int(got[1][:, :k]))))
+    if have != [bn254.h_ec_add(pts[i], pts[k + i]) for i in range(k)]:
+        raise AssertionError("the mixed add differs from the host's add")
+    log(f"[madd] {half} mixed adds through bn254.point_madd_unsafe: bad = False, equal to the "
+        f"complete add and to the host; {secs * 1e3:.3f} ms, launches {launches}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_environment()
@@ -252,7 +593,11 @@ def main() -> int:
     phase_build()
     timing = phase_kernels(device)
     phase_golden(device)
-    launches = phase_slice(device)
+    paths = [phase_slice(device)]
+    points = test_points(device)
+    paths += [phase_msm(device, points), phase_kzg(device), phase_madd(device, points)]
+    launches = {name: sum(path[name] for path in paths) for name in kernels.KERNELS}
+    require_launches("main", launches, kernels.KERNELS)
     rows = [
         {"name": name, **kernels.KERNELS[name], "launches": launches[name], **timing[name]}
         for name in kernels.KERNELS

@@ -9,7 +9,7 @@ Layout:
               pairing; `ops/kernels.py` builds and launches the CUDA kernels
   csrc/       the CUDA C++ sources of those kernels (built with nvcc at
               first use into `_build/`)
-  models/     Merkle, FRI, the chunk STARK (batched), Groth16
+  models/     Merkle, FRI, the chunk STARK (batched), Groth16, KZG
   protocol/   the batch prover service (`BatchProver`)
 
 The device is always explicit: functions that create tensors take a

@@ -6,6 +6,7 @@ python ints — so this module imports neither package's JAX code:
   GF(lo, hi) uint32 planes      <-> int64 tensor of canonical Goldilocks values
   (16, B) uint32 limb planes    <-> (16, B) int32 tensor (same 16-bit limbs)
   a ProvingKey / VerifyingKey / R1CS of the JAX package -> the port's
+  the fields of an Srs / G1Table of the JAX package    -> the port's
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import groth16
+from .models import groth16, kzg
+from .ops import msm
 
 
 def gf_to_tensor(lo, hi, device) -> torch.Tensor:
@@ -54,3 +56,17 @@ def proving_key_from(pk) -> groth16.ProvingKey:
 
 def verifying_key_from(vk) -> groth16.VerifyingKey:
     return _same_fields(groth16.VerifyingKey, vk)
+
+
+def srs_from_jax(g1_x, g1_y, g1_inf, g2_tau, device) -> kzg.Srs:
+    """The fields of the JAX package's `kzg.Srs`, given as numpy arrays (and
+    g2_tau as host ints), as the port's Srs on `device`."""
+    inf = torch.from_numpy(np.asarray(g1_inf, dtype=bool).copy()).to(device)
+    return kzg.Srs(limbs_to_tensor(g1_x, device), limbs_to_tensor(g1_y, device), inf, g2_tau)
+
+
+def g1_table_from_jax(txs, tys, tinf, c: int, n: int, device) -> msm.G1Table:
+    """The fields of the JAX package's `msm.G1Table`, given as numpy arrays,
+    as the port's G1Table on `device`."""
+    inf = torch.from_numpy(np.asarray(tinf, dtype=bool).copy()).to(device)
+    return msm.G1Table(limbs_to_tensor(txs, device), limbs_to_tensor(tys, device), inf, c, n)

@@ -1,7 +1,8 @@
 // Montgomery field arithmetic for the BN254 kernels, one element per thread.
 //
 // Counterpart of `_field_ops` in eigen_zeth_tpu/ops/pallas/ec_pl.py:29
-// (mont_mul, add, sub, dbl, is_zero, select).  The TPU kernels hold an
+// (mont_mul, add, sub, dbl, is_zero, select), plus what the scan-step and
+// mixed-add kernels share (neg, the unsafe mixed add).  The TPU kernels hold an
 // element as 16 limbs of 16 bits in uint32 lanes because the VPU has no wide
 // multiplier; here an element lives in eight 32-bit registers and the CIOS
 // inner step uses the 32x32->64 multiplier (a*b + t + c < 2^64).  R stays
@@ -162,6 +163,47 @@ __device__ __forceinline__ Fe mont_mul_fe(const Fe& a, const Fe& b,
 #pragma unroll
   for (int k = 0; k < kWords; ++k) r.w[k] = t[k];
   return cond_sub_q(r, t[kWords], m);
+}
+
+// -a mod q, with -0 = 0, so the output stays canonical (q - 0 would be q).
+__device__ __forceinline__ Fe neg_fe(const Fe& a, const Modulus& m) {
+  Fe d;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    uint64_t s = static_cast<uint64_t>(m.q[k]) - a.w[k] - borrow;
+    d.w[k] = static_cast<uint32_t>(s);
+    borrow = static_cast<uint32_t>(s >> 63);
+  }
+  return select_fe(is_zero_fe(a), a, d);
+}
+
+// Unsafe mixed add (madd-2007-bl with Z2 = 1, 7M + 4S) of the Jacobian point
+// (X1, Y1, Z1) and the affine point (X2, Y2): no doubling and no infinity
+// branch.  Counterpart of eigen_zeth_tpu/ops/bn254.py:point_madd_unsafe and
+// of the body shared by `_point_madd_kernel` and `_scan_step_kernel` in
+// eigen_zeth_tpu/ops/pallas/ec_pl.py.  Returns the `bad` test, H == 0 or
+// Z1 == 0 (P == +-Q, or the accumulator at infinity): the outputs are then
+// meaningless and the caller must discard or recompute them.
+__device__ __forceinline__ bool madd_unsafe_fe(const Fe& X1, const Fe& Y1,
+                                               const Fe& Z1, const Fe& X2,
+                                               const Fe& Y2, Fe& X3, Fe& Y3,
+                                               Fe& Z3, const Modulus& m) {
+  const Fe z1z1 = mont_mul_fe(Z1, Z1, m);
+  const Fe u2 = mont_mul_fe(X2, z1z1, m);
+  const Fe s2 = mont_mul_fe(Y2, mont_mul_fe(Z1, z1z1, m), m);
+  const Fe h = sub_fe(u2, X1, m);
+  const Fe hh = mont_mul_fe(h, h, m);
+  const Fe i_ = dbl_fe(dbl_fe(hh, m), m);
+  const Fe j_ = mont_mul_fe(h, i_, m);
+  const Fe r = dbl_fe(sub_fe(s2, Y1, m), m);
+  const Fe v = mont_mul_fe(X1, i_, m);
+  X3 = sub_fe(sub_fe(mont_mul_fe(r, r, m), j_, m), dbl_fe(v, m), m);
+  Y3 = sub_fe(mont_mul_fe(r, sub_fe(v, X3, m), m),
+              dbl_fe(mont_mul_fe(Y1, j_, m), m), m);
+  const Fe zh = add_fe(Z1, h, m);
+  Z3 = sub_fe(sub_fe(mont_mul_fe(zh, zh, m), z1z1, m), hh, m);
+  return is_zero_fe(h) || is_zero_fe(Z1);
 }
 
 }  // namespace ezt

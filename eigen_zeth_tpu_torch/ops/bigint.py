@@ -83,7 +83,8 @@ class MontCtx:
     """Montgomery context for an odd modulus below 2^256.
 
     Holds the modulus limbs per device (the constants the plain ops
-    broadcast) and the 32-bit words the CUDA kernel takes by value."""
+    broadcast) and n0 at the widths of the plain version (16 bits) and of
+    the CUDA kernels (32 bits)."""
 
     def __init__(self, modulus: int):
         assert modulus % 2 == 1 and modulus < 1 << (LIMB_BITS * L)
@@ -96,7 +97,6 @@ class MontCtx:
         self.n0_16 = self.nprime & MASK
         self.n0_32 = self.nprime & 0xFFFFFFFF
         self.q_limbs_np = limbs_from_int(modulus)
-        self.q_words = tuple((modulus >> (32 * i)) & 0xFFFFFFFF for i in range(8))
         self._dev: dict = {}
 
     def q_limbs(self, device) -> torch.Tensor:

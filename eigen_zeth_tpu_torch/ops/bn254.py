@@ -6,7 +6,8 @@
   * Jacobian point add/double written once against a small field-ops
     interface, so G1 (Fq) and G2 (Fq2) share the formulas — branch-free
     (infinity / P == Q / P == -Q resolved by selects).  The G1 add of the
-    MSM goes to kernel B instead (ops/msm.py:ECGroup)
+    MSM goes to kernel B instead (ops/msm.py:ECGroup), and the unsafe
+    mixed add on G1 to kernel D
   * the host reference (python ints, affine) used by tests, setup and the
     Groth16 verifier
 
@@ -249,6 +250,45 @@ def point_add(F, p: PointJ, q: PointJ) -> PointJ:
     y = F.select(p_inf, Y2, F.select(q_only, Y1, y))
     z = F.select(p_inf, Z2, F.select(q_only, Z1, z))
     return PointJ(x, y, z)
+
+
+def point_madd_unsafe(F, p: PointJ, qx, qy):
+    """UNSAFE mixed add p + (qx, qy, 1): madd-2007-bl, 7M + 4S.
+
+    No doubling or infinity branches: the point returned means nothing
+    where `bad` is set, which is where H == 0 (P == +-Q) or p is at
+    infinity.  Returns (PointJ, bad).  On G1 with CUDA tensors this is
+    kernel D; over Fq2, with plain field ops and on the CPU it is the
+    formula below."""
+    if isinstance(F, FqOps) and not F.plain and p.x.device.type != "cpu":
+        from . import kernels
+
+        shape = p.x.shape
+        flat = lambda t: t.expand(shape).reshape(16, -1).contiguous()  # noqa: E731
+        x3, y3, z3, bad = kernels.point_madd(
+            F.ctx, tuple(map(flat, p)), (flat(qx), flat(qy))
+        )
+        out = PointJ(*(t.reshape(shape) for t in (x3, y3, z3)))
+        return out, bad.reshape(shape[1:]) != 0
+    # the 11 products in five dependency levels, one `F.muls` call each
+    z1z1 = F.sq(p.z)
+    u2, z1c = F.muls([qx, p.z], [z1z1, z1z1])
+    h = F.sub(u2, p.x)
+    s2, hh = F.muls([qy, h], [z1c, h])
+    i_ = F.double(F.double(hh))
+    r = F.double(F.sub(s2, p.y))
+    zh = F.add(p.z, h)
+    j_, v, rr, zhzh = F.muls([h, p.x, r, zh], [i_, i_, r, zh])
+    x3 = F.sub(F.sub(rr, j_), F.double(v))
+    ry, yj = F.muls([r, p.y], [F.sub(v, x3), j_])
+    y3 = F.sub(ry, F.double(yj))
+    z3 = F.sub(F.sub(zhzh, z1z1), hh)
+    bad = F.is_zero(h) | F.is_zero(p.z)
+    return PointJ(x3, y3, z3), bad
+
+
+def point_neg(F, p: PointJ) -> PointJ:
+    return PointJ(p.x, F.neg(p.y), p.z)
 
 
 def to_affine(F, p: PointJ):

@@ -1,22 +1,34 @@
-"""Multi-scalar multiplication (Pippenger) over BN254 — port of the
-complete-add schedule of eigen_zeth_tpu/ops/msm.py.
+"""Multi-scalar multiplication (Pippenger) over BN254 — port of
+eigen_zeth_tpu/ops/msm.py: the complete-add schedule (G1 and G2) and the
+fast G1 schedule with its fixed-base table.
 
-Per window w (digits d_i = bits [Cw, Cw+C) of each scalar), all W windows
-batched on one axis:
+Complete-add schedule (`msm_window_sums`, `msm_g1`, `msm_g2`).  Per window
+w (digits d_i = bits [cw, cw+c) of each scalar), all W windows batched on
+one axis:
   1. sort points by digit (stable)
   2. inclusive segmented scan with the EC group op; segment boundaries
      where the sorted digit changes, so each segment's last value is that
      bucket's point sum.  Every scan runs on the blocked O(N) schedule:
-     SERIAL steps along each lane, then a short scan over the lanes
+     `serial` steps along each lane, then a short scan over the lanes
   3. one scatter of the segment-end sums into the bucket table
   4. Σ_b b·B_b as the total of the reverse (suffix) scan of the buckets
-The window sums come back to the host affine, and the Horner combine
-Σ_w 2^(Cw)·S_w runs on python ints.
+Every group op is `ECGroup.add`: the G1 add goes to kernel B
+(ops/kernels.py) at every size, and the G2 add is the generic Jacobian add
+over Fq2, whose Fq products go to kernel A.
 
-Every group op is `ECGroup.add`: the G1 add goes to kernel B (ops/kernels.py)
-at every size, and the G2 add is the generic Jacobian add over Fq2, whose
-Fq products go to kernel A.  The MSM result is one point whatever the order
-of equal digits, so the sort order may differ from the JAX package's.
+Fast G1 schedule (`g1_window_sums_fast`, `msm_g1_fast`, `msm_g1_device`,
+`msm_g1_table`): signed digits halve the buckets and let c grow to 13;
+phase 1 walks `serial` steps along each lane, each step ONE launch of
+kernel C (sign select + unsafe mixed add + segment restart + collision
+flag); the lane tails, the bucket correction and the bucket reduction use
+complete adds (kernel B) at 1/serial of the width; each bucket's sum is
+gathered from its segment end, found with a searchsorted on the sorted
+digits.  An unsafe add that met P == +-Q or an accumulator at infinity
+raises `bad`, and the entry points then recompute through `msm_g1`.
+
+The window sums come back to the host affine, and the Horner combine
+Σ_w 2^(cw)·S_w runs on python ints.  An MSM result is one point whatever
+the order of equal digits; the sorts are stable, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,8 +39,8 @@ import torch
 from . import bn254, kernels
 from .bn254 import PointJ, from_affine, point_add, to_affine
 
-C = 8  # window bits: 32 windows of 256 buckets over 254-bit scalars
-SERIAL = 32  # serial steps per lane of the blocked scans
+DEFAULT_C = 8  # window bits: 32 windows of 256 buckets over 254-bit scalars
+DEFAULT_SERIAL = 32  # serial steps per lane of the blocked scans
 
 
 def scalar_limbs(scalars, nbits: int = 254) -> np.ndarray:
@@ -38,7 +50,7 @@ def scalar_limbs(scalars, nbits: int = 254) -> np.ndarray:
     return np.frombuffer(buf, dtype=np.uint32).reshape(len(scalars), nlimbs).copy()
 
 
-def scalar_digits(scalars, c: int = C, nbits: int = 254) -> np.ndarray:
+def scalar_digits(scalars, c: int = DEFAULT_C, nbits: int = 254) -> np.ndarray:
     """Host ints -> (W, N) uint32 window digits (numpy)."""
     limbs = scalar_limbs(scalars, nbits).astype(np.uint64)
     n = limbs.shape[0]
@@ -55,7 +67,7 @@ def scalar_digits(scalars, c: int = C, nbits: int = 254) -> np.ndarray:
     return out
 
 
-def digits_from_limbs(limbs: torch.Tensor, c: int = C, nbits: int = 254) -> torch.Tensor:
+def digits_from_limbs(limbs: torch.Tensor, c: int = DEFAULT_C, nbits: int = 254) -> torch.Tensor:
     """Device: (N, K) int64 tensor of 32-bit limbs -> (W, N) int64 digits."""
     n = limbs.shape[0]
     padded = torch.cat([limbs, torch.zeros_like(limbs[:, :1])], dim=1)
@@ -68,6 +80,35 @@ def digits_from_limbs(limbs: torch.Tensor, c: int = C, nbits: int = 254) -> torc
             vals = vals | (padded[:, limb + 1] << (32 - r))
         rows.append(vals & mask)
     return torch.stack(rows, dim=0) if rows else torch.zeros((0, n), dtype=torch.int64)
+
+
+def _check_top_window(c: int, nbits: int = 254) -> None:
+    """Signed digits carry into the next window; the top one must have room."""
+    if not (nbits % c < c - 1 or nbits % c == 0):
+        raise ValueError(f"c = {c}: the top window of {nbits}-bit scalars could overflow")
+
+
+def signed_digits_from_limbs(limbs: torch.Tensor, c: int = 13, nbits: int = 254):
+    """Device: (N, K) int64 tensor of 32-bit limbs -> signed window digits
+    (mag, sign): mag (W, N) int64 in [0, 2^(c-1)], sign (W, N) bool, True
+    for negative digits and never where mag == 0.
+
+    A digit above 2^(c-1) becomes its negative complement and carries one
+    into the next window, so Σ_w (-1)^sign·mag·2^(cw) is the scalar.  Needs
+    nbits mod c < c-1 (or 0) so the top window cannot overflow."""
+    _check_top_window(c, nbits)
+    du = digits_from_limbs(limbs, c, nbits)  # (W, N) in [0, 2^c)
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros_like(du[0]) if du.shape[0] else None
+    mags, signs = [], []
+    for d in du:
+        d2 = d + carry
+        wrap = d2 > half
+        mags.append(torch.where(wrap, full - d2, d2))
+        signs.append(wrap)
+        carry = wrap.to(du.dtype)
+    mag, sign = torch.stack(mags, dim=0), torch.stack(signs, dim=0)
+    return mag, sign & (mag != 0)
 
 
 def _tmap(fn, *trees):
@@ -124,7 +165,7 @@ def _hs_scan(G, pts, flags):
     return v
 
 
-def _blocked_seg_scan(G, pts, flags):
+def _blocked_seg_scan(G, pts, flags, serial: int = DEFAULT_SERIAL):
     """O(N) two-phase segmented inclusive scan along the last axis:
       phase 1  N viewed as (C lanes x S serial): lane-local segmented sums,
                one full-width group op per serial step
@@ -132,7 +173,7 @@ def _blocked_seg_scan(G, pts, flags):
       phase 3  one masked add folds each lane's inflow into its head run
     flags: one rank less than the leaves (broadcasts in selects)."""
     n = flags.shape[-1]
-    S = SERIAL
+    S = serial
     while n % S:
         S //= 2
     C = n // S
@@ -162,22 +203,22 @@ def _blocked_seg_scan(G, pts, flags):
     return _tmap(lambda l: l.reshape(l.shape[:-2] + (n,)), fixed)
 
 
-def _blocked_scan(G, pts, reverse: bool = False):
+def _blocked_scan(G, pts, reverse: bool = False, serial: int = DEFAULT_SERIAL):
     """O(N) plain inclusive scan along the last axis (one segment)."""
     if reverse:
         pts = _tmap(lambda l: torch.flip(l, dims=(-1,)), pts)
     leaf = _first_leaf(pts)
     flags = torch.zeros(leaf.shape[1:], dtype=torch.bool, device=leaf.device)
-    out = _blocked_seg_scan(G, pts, flags)
+    out = _blocked_seg_scan(G, pts, flags, serial)
     if reverse:
         out = _tmap(lambda l: torch.flip(l, dims=(-1,)), out)
     return out
 
 
-def msm_window_sums(G, points, digits: torch.Tensor):
+def msm_window_sums(G, points, digits: torch.Tensor, c: int = DEFAULT_C):
     """Per-window bucket-aggregated sums S_w = Σ_b b·B_b, all windows at
-    once; points (16, N) leaves, digits (W, N) -> leaves (..., W)."""
-    nbuckets = 1 << C
+    once; points (16, N) leaves, digits (W, N) of c bits -> leaves (..., W)."""
+    nbuckets = 1 << c
     W = digits.shape[0]
     d_sorted, order = torch.sort(digits, dim=-1, stable=True)
     pts = _tmap(lambda leaf: leaf[:, order], points)  # (16, W, N)
@@ -205,12 +246,148 @@ def msm_window_sums(G, points, digits: torch.Tensor):
     return _tmap(lambda l: l[..., -1], _blocked_scan(G, suffix))
 
 
-def _host_horner(windows, fq2: bool = False):
-    """Host combine Σ_w 2^(Cw)·S_w (python ints)."""
+# ---------------------------------------------------------------------------
+# fast G1 path: signed digits, unsafe mixed adds fused with the sign select
+# and the segment restart in kernel C, and bucket sums gathered from their
+# segment ends.  About a third of the field products per point of the
+# complete-add schedule above, which stays as the collision fallback.
+
+
+def _scan_step(F, acc: PointJ, qx, qy, sgn, flg):
+    """One MSM phase-1 step: y' = -qy where sgn, unsafe mixed add of
+    (qx, y') into acc, restart with (qx, y', one) where flg.  sgn, flg:
+    bool or int32 masks of the batch shape.  Returns (PointJ, bad), bad a
+    bool tensor already masked by ~flg.
+
+    For FqOps this is `kernels.point_scan_step`: kernel C on CUDA tensors,
+    its plain version on the CPU."""
+    if not isinstance(F, bn254.FqOps) or F.plain:
+        raise TypeError("the fused scan step exists for G1 over the dispatching FqOps only")
+    shape = acc.x.shape
+    flat = lambda t: t.reshape(16, -1).contiguous()  # noqa: E731
+    mask = lambda t: t.to(torch.int32).reshape(-1).contiguous()  # noqa: E731
+    x3, y3, z3, bad = kernels.point_scan_step(
+        F.ctx, tuple(map(flat, acc)), (flat(qx), flat(qy)), mask(sgn), mask(flg)
+    )
+    out = PointJ(*(t.reshape(shape) for t in (x3, y3, z3)))
+    return out, bad.reshape(shape[1:]) != 0
+
+
+def g1_window_sums_fast(F, xs, ys, inf, mag, sign, c: int = 13,
+                        serial: int = DEFAULT_SERIAL, window_group: int = 32):
+    """Per-window sums S_w = Σ_b b·B_b from signed digits, fast schedule.
+
+    xs, ys: (16, N) affine Montgomery coordinates; inf: (N,) bool;
+    mag / sign: (W, N) signed digits.  Returns (PointJ with (16, W) leaves,
+    bad: a 0-d bool tensor, True when an unsafe add hit P == +-Q or an
+    accumulator at infinity, so the caller must recompute through the
+    complete-add schedule).
+
+    Per group of g windows:
+      sort     stable sort by digit magnitude; the order carries the sign
+      phase 1  N viewed as (C lanes x S serial steps); step i gathers its
+               (16, g·C) points and makes ONE launch of kernel C
+      phase 2  lane tails combine with complete adds at width C
+      buckets  searchsorted on the sorted digits finds each bucket's
+               segment end; one gather reads the B sums there, and a
+               bucket that crosses its lane's start takes the lane's inflow
+               by one complete add; absent buckets become infinities
+      reduce   suffix scan + total scan over the B bucket sums
+
+    The serial depth halves until it divides N (no padding: two infinities
+    side by side in bucket 0 would raise `bad`)."""
+    G = ECGroup(F)
+    n_windows, n = mag.shape
+    dev = xs.device
+    B = 1 << (c - 1)
+    mag = torch.where(inf[None, :], torch.zeros_like(mag), mag)
+    S_ = serial
+    while n % S_:
+        S_ //= 2
+    C = n // S_
+
+    window_sums = []
+    bad_any = torch.zeros((), dtype=torch.bool, device=dev)
+    for w0 in range(0, n_windows, window_group):
+        mg = mag[w0 : w0 + window_group]
+        g = mg.shape[0]
+        mag_s, order = torch.sort(mg, dim=-1, stable=True)
+        sign_s = torch.gather(sign[w0 : w0 + window_group], 1, order)
+        first = torch.ones((g, 1), dtype=torch.bool, device=dev)
+        flags = torch.cat([first, mag_s[:, 1:] != mag_s[:, :-1]], dim=-1)
+
+        # --- phase 1: one kernel C launch per serial step -------------------
+        # step-major (S, g·C) index and mask stacks, so each step's slice is
+        # contiguous and its gather lands as kernel C's (16, g·C) operand
+        fr = flags.reshape(g, C, S_)
+        lane_start = fr.clone()
+        lane_start[..., 0] = True
+        step_major = lambda t: t.permute(2, 0, 1).reshape(S_, g * C).contiguous()  # noqa: E731
+        order_t = step_major(order.reshape(g, C, S_))
+        f_t = step_major(lane_start.to(torch.int32))
+        s_t = step_major(sign_s.reshape(g, C, S_).to(torch.int32))
+
+        zeros = torch.zeros((16, g, C), dtype=xs.dtype, device=dev)
+        acc = PointJ(zeros, zeros, zeros)
+        badp = torch.zeros((g, C), dtype=torch.bool, device=dev)
+        # every step's running sums, kept for the bucket gather below
+        scanned = PointJ(*(torch.empty((S_, 16, g, C), dtype=xs.dtype, device=dev)
+                           for _ in range(3)))
+        for i in range(S_):
+            xv = xs.index_select(1, order_t[i]).reshape(16, g, C)
+            yv = ys.index_select(1, order_t[i]).reshape(16, g, C)
+            acc, b = _scan_step(F, acc, xv, yv, s_t[i].reshape(g, C), f_t[i].reshape(g, C))
+            badp |= b
+            for kept, leaf in zip(scanned, acc):
+                kept[i] = leaf
+        tails = acc
+        bad_any = bad_any | badp.any()
+
+        # --- phase 2: combine lane tails (complete adds, width C) -----------
+        has_flag = fr.any(dim=-1)
+        if C > 64:
+            lane_scan = _blocked_seg_scan(G, tails, has_flag, serial)
+        else:
+            lane_scan = _hs_scan(G, tails, has_flag)
+        shifted = _tmap(lambda l: torch.roll(l, 1, dims=-1), lane_scan)
+        connected = (torch.arange(C, device=dev) > 0) & ~fr[..., 0]
+        inflow = G.select(connected, shifted, _tmap(torch.zeros_like, shifted))
+
+        # --- buckets: gather each bucket's segment-end sum ------------------
+        ids = torch.arange(B + 1, dtype=mag_s.dtype, device=dev).expand(g, B + 1).contiguous()
+        right = torch.searchsorted(mag_s, ids, right=True)  # #elements <= id
+        left = torch.searchsorted(mag_s, ids, right=False)  # #elements < id
+        hist = right - left
+        present = hist > 0
+        pos_c = torch.clamp(right - 1, min=0)  # inclusive end of bucket b
+        end_lane = pos_c // S_
+        end_step = pos_c % S_
+        seg_start = pos_c - hist + 1  # first sorted index of bucket b
+        g_idx = torch.arange(g, device=dev)[:, None]
+        # scanned leaves are (S, 16, g, C): [end_step, :, g, end_lane] gives
+        # (g, B+1, 16) -> (16, g, B+1)
+        val = _tmap(lambda l: l[end_step, :, g_idx, end_lane].movedim(-1, 0), scanned)
+        inflow_b = _tmap(lambda l: l[:, g_idx, end_lane], inflow)
+        needs = present & (seg_start < end_lane * S_)
+        corrected = G.add(val, G.select(needs, inflow_b, _tmap(torch.zeros_like, inflow_b)))
+        ez = torch.where(present, corrected.z, torch.zeros_like(corrected.z))
+        E = PointJ(corrected.x[..., 1:], corrected.y[..., 1:], ez[..., 1:])
+
+        # --- reduce: S_w = Σ_b b·B_b by suffix + total scans ----------------
+        suffix = _blocked_scan(G, E, reverse=True, serial=serial)
+        total = _blocked_scan(G, suffix, serial=serial)
+        window_sums.append(_tmap(lambda l: l[..., -1], total))
+
+    S = _tmap(lambda *ls: torch.cat(ls, dim=-1), *window_sums)
+    return S, bad_any
+
+
+def _host_horner(windows, c: int, fq2: bool = False):
+    """Host combine Σ_w 2^(cw)·S_w (python ints)."""
     Fh = bn254.HOST_FQ2 if fq2 else bn254.HOST_FQ
     acc = None
     for S_w in reversed(windows):
-        for _ in range(C):
+        for _ in range(c):
             acc = bn254.h_ec_add(acc, acc, Fh)
         acc = bn254.h_ec_add(acc, S_w, Fh)
     return acc
@@ -236,38 +413,186 @@ def _g2_device_points(points_int, device) -> PointJ:
 
 
 def _pad(points_int, scalars):
-    """Pad to a multiple of SERIAL with infinities (digit 0, bucket 0), so
-    the blocked scans run full serial lanes."""
-    pad = (-len(points_int)) % SERIAL
+    """Pad to a multiple of DEFAULT_SERIAL with infinities (digit 0, bucket
+    0), so the blocked scans run full serial lanes.  Only the complete-add
+    schedule may do this: on the fast path two neighbouring infinities
+    raise `bad`."""
+    pad = (-len(points_int)) % DEFAULT_SERIAL
     return list(points_int) + [None] * pad, list(scalars) + [0] * pad
 
 
-def _window_sums(F, pts, scalars, device):
+def _limbs_tensor(scalars, device) -> torch.Tensor:
+    return torch.from_numpy(scalar_limbs(scalars).astype(np.int64)).to(device)
+
+
+def _window_sums(F, pts, scalars, c, device):
     """Affine window sums on the host; pts come padded like scalars."""
-    limbs = torch.from_numpy(scalar_limbs(scalars).astype(np.int64)).to(device)
-    S = msm_window_sums(ECGroup(F), pts, digits_from_limbs(limbs))
+    S = msm_window_sums(ECGroup(F), pts, digits_from_limbs(_limbs_tensor(scalars, device), c), c)
     ax, ay = to_affine(F, S)
     return F.to_int(ax), F.to_int(ay), F.is_zero(S.z).cpu().numpy()
 
 
-def msm_g1(points_int, scalars, *, device):
-    """Σ s_i·P_i on G1 on `device`; host ints in, affine host ints out
-    (None = infinity)."""
+def _affine_windows(xs, ys, inf):
+    return [None if inf[w] else (int(xs[w]), int(ys[w])) for w in range(len(inf))]
+
+
+def msm_g1(points_int, scalars, c: int = DEFAULT_C, *, device):
+    """Σ s_i·P_i on G1 on `device` by the complete-add schedule; host ints
+    in, affine host ints out (None = infinity)."""
     F = bn254.FqOps()
     points_int, scalars = _pad(points_int, scalars)
-    xs, ys, inf = _window_sums(F, _g1_device_points(points_int, device), scalars, device)
-    windows = [None if inf[w] else (int(xs[w]), int(ys[w])) for w in range(len(inf))]
-    return _host_horner(windows)
+    xs, ys, inf = _window_sums(F, _g1_device_points(points_int, device), scalars, c, device)
+    return _host_horner(_affine_windows(xs, ys, inf), c)
 
 
-def msm_g2(points_int, scalars, *, device):
+def msm_g2(points_int, scalars, c: int = DEFAULT_C, *, device):
     """Σ s_i·P_i on G2 on `device`; affine ((x0, x1), (y0, y1)) out."""
     F = bn254.Fq2Ops()
     points_int, scalars = _pad(points_int, scalars)
     (x0, x1), (y0, y1), inf = _window_sums(F, _g2_device_points(points_int, device), scalars,
-                                           device)
+                                           c, device)
     windows = [
         None if inf[w] else ((int(x0[w]), int(x1[w])), (int(y0[w]), int(y1[w])))
         for w in range(len(inf))
     ]
-    return _host_horner(windows, fq2=True)
+    return _host_horner(windows, c, fq2=True)
+
+
+# ---------------------------------------------------------------------------
+# fast G1 entry points (host ints out)
+
+
+def gen_test_points(n_log2: int, seed: int = 5, *, device):
+    """2^n distinct G1 points on `device` with known discrete logs.
+
+    P_{a,b} = B_a + C_b from two sqrt-size host sets, so the correctness
+    gate of a large MSM is ONE host scalar multiplication of G by Σ s_i·k_i.
+    Returns (xs, ys, dlogs): affine Montgomery limbs (16, 2^n) and the host
+    dlog list."""
+    if n_log2 < 2:
+        raise ValueError("gen_test_points needs n_log2 >= 2")
+    h = n_log2 // 2
+    na, nb = 1 << (n_log2 - h), 1 << h
+    rng = np.random.default_rng(seed)
+    ka = [int(x) for x in rng.integers(1, 1 << 60, size=na, dtype=np.int64)]
+    kb = [int(x) << 61 for x in rng.integers(1, 1 << 60, size=nb, dtype=np.int64)]
+    A = [bn254.h_ec_mul_jac_f(k, bn254.G1_GEN) for k in ka]
+    B = [bn254.h_ec_mul_jac_f(k, bn254.G1_GEN) for k in kb]
+    F = bn254.FqOps()
+    G = ECGroup(F)
+
+    def axis(points, coord, shape):
+        return F.ctx.from_int([p[coord] for p in points], device).reshape(shape)
+
+    ax, ay = (axis(A, k, (16, na, 1)) for k in (0, 1))
+    bx, by = (axis(B, k, (16, 1, nb)) for k in (0, 1))
+    one = F.ctx.one_mont((1, 1), device)
+    full = (16, na, nb)
+    pa = PointJ(*(t.expand(full) for t in (ax, ay, one)))
+    pb = PointJ(*(t.expand(full) for t in (bx, by, one)))
+    xs, ys = to_affine(F, G.add(pa, pb))
+    dlogs = [ka[i] + kb[j] for i in range(na) for j in range(nb)]
+    return xs.reshape(16, -1), ys.reshape(16, -1), dlogs
+
+
+def _msm_g1_fast_windows(xs, ys, inf, limbs, c, serial, window_group):
+    """The fast schedule end to end on the device: limb scalars -> signed
+    digits -> window sums -> affine.  Returns (ax, ay, inf_w, bad), bad a
+    0-d bool tensor: True means the caller must recompute through the
+    complete-add schedule."""
+    F = bn254.FqOps()
+    mag, sign = signed_digits_from_limbs(limbs, c=c)
+    S, bad = g1_window_sums_fast(F, xs, ys, inf, mag, sign, c=c, serial=serial,
+                                 window_group=window_group)
+    ax, ay = to_affine(F, S)
+    return ax, ay, F.is_zero(S.z), bad
+
+
+def host_points(F, xs, ys, inf):
+    xs_i, ys_i, inf_h = F.to_int(xs), F.to_int(ys), inf.cpu().numpy()
+    return [None if inf_h[i] else (int(xs_i[i]), int(ys_i[i])) for i in range(len(inf_h))]
+
+
+def msm_g1_device(xs, ys, inf, scalars, c: int | None = None,
+                  serial: int = DEFAULT_SERIAL, window_group: int = 32):
+    """Fast G1 MSM over points already on the device as Montgomery limbs
+    (a KZG SRS): xs, ys (16, N), inf (N,) bool; host scalars in, host
+    affine ints out.  It runs where the points lie.
+
+    c=None picks the window width from N (the bucket reduction, W·2^(c-1)
+    adds, must not swamp the N·W scan).  Sound for arbitrary inputs: when
+    an unsafe add raises `bad`, the complete-add schedule recomputes."""
+    F = bn254.FqOps()
+    if c is None:
+        n = xs.shape[1]
+        c = 13 if n >= 4096 else (8 if n >= 256 else 4)
+    limbs = _limbs_tensor(scalars, xs.device)
+    ax, ay, inf_w, bad = _msm_g1_fast_windows(xs, ys, inf, limbs, c, serial, window_group)
+    if bool(bad):
+        return msm_g1(host_points(F, xs, ys, inf), scalars, device=xs.device)
+    return _host_horner(_affine_windows(F.to_int(ax), F.to_int(ay), inf_w.cpu().numpy()), c)
+
+
+def msm_g1_fast(points_int, scalars, c: int = 13, serial: int = DEFAULT_SERIAL,
+                window_group: int = 32, *, device):
+    """Σ s_i·P_i on G1 on `device` by the fast schedule; host ints in,
+    affine host ints out (None = infinity).  Uploads the points, then
+    `msm_g1_device`."""
+    F = bn254.FqOps()
+    p = _g1_device_points(points_int, device)
+    return msm_g1_device(p.x, p.y, F.is_zero(p.z), scalars, c, serial, window_group)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base MSM: with T[w·N+i] = 2^(cw)·P_i precomputed, the W windows
+# merge into ONE window over W·N digit/point pairs: one bucket reduction of
+# 2^(c-1) sums, no Horner combine.
+
+
+class G1Table:
+    """Precomputed fixed-base table for msm_g1_table (on the device)."""
+
+    def __init__(self, txs, tys, tinf, c: int, n: int):
+        self.txs, self.tys, self.tinf = txs, tys, tinf
+        self.c = c
+        self.n = n
+        self.n_windows = (254 + c - 1) // c
+
+
+def g1_build_table(points_int, c: int = 16, *, device) -> G1Table:
+    """Precompute the fixed-base window table on `device` (once per SRS):
+    slab w holds 2^(cw)·P_i, by c Jacobian doublings per window and one
+    Jacobian -> affine conversion of the whole table."""
+    _check_top_window(c)
+    F = bn254.FqOps()
+    W = (254 + c - 1) // c
+    p = _g1_device_points(points_int, device)
+    inf = F.is_zero(p.z)
+    slabs = []
+    for _ in range(W):
+        slabs.append(p)
+        for _ in range(c):
+            p = bn254.point_double(F, p)
+    tj = _tmap(lambda *ls: torch.cat(ls, dim=1), *slabs)  # (16, W·N), w-major
+    txs, tys = to_affine(F, tj)
+    return G1Table(txs, tys, inf.repeat(W), c, len(points_int))
+
+
+def msm_g1_table(table: G1Table, scalars, serial: int = DEFAULT_SERIAL):
+    """Σ s_i·P_i against a precomputed G1Table; host affine ints out.  On a
+    collision the complete-add schedule recomputes on the base points."""
+    F = bn254.FqOps()
+    device = table.txs.device
+    mag, sign = signed_digits_from_limbs(_limbs_tensor(scalars, device), c=table.c)
+    S, bad = g1_window_sums_fast(
+        F, table.txs, table.tys, table.tinf, mag.reshape(1, -1), sign.reshape(1, -1),
+        c=table.c, serial=serial, window_group=1,
+    )
+    if bool(bad):
+        n = table.n
+        pts = host_points(F, table.txs[:, :n], table.tys[:, :n], table.tinf[:n])
+        return msm_g1(pts, scalars, device=device)
+    ax, ay = to_affine(F, S)
+    if bool(F.is_zero(S.z)[0]):
+        return None
+    return int(F.to_int(ax)[0]), int(F.to_int(ay)[0])
