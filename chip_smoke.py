@@ -7,13 +7,20 @@ Drives the port's main paths (`eigen_zeth_tpu_torch`) on the card through
 the entry points a user calls, and checks every stage:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions
-  2. builds the four CUDA kernels from eigen_zeth_tpu_torch/csrc with nvcc
+  2. builds the CUDA kernels from eigen_zeth_tpu_torch/csrc with nvcc and
+     times the integer-rate probe beside the rate the bounds assume
   3. holds each kernel against its plain PyTorch version, bit for bit, at
      its path's shape (A and B at 32 windows x 1,326 MSM points, C and D at
-     20 windows x 8,192 lanes), times both (CUDA events around runs of
-     back-to-back launches, median), works out each kernel's bound from
-     its bytes and multiply-adds, and checks that kernel C equals sign
-     select, kernel D, restart select
+     20 windows x 8,192 lanes, the power at 32 window sums, the G2 add at
+     32 windows x 896 points; the point adds also under a mask, all set,
+     none set and mixed, for both kept operands), with edge cases checked
+     against host arithmetic.  Three times per kernel: at the path's shape
+     (CUDA events around runs of back-to-back launches, median), the
+     host's cost of a launch (host clock around 200 launches, nothing
+     synchronised inside), and the device time at a batch where the card's
+     work outlasts the host's enqueue, beside the bound worked out from
+     the bytes and multiply-adds at that batch.  Checks that kernel C
+     equals sign select, kernel D, restart select
   4. proves the tiny golden configuration on the card and checks its
      sha256 digests against tests/data/torch_slice_golden.json
   5. the batch proof, `BatchProver(wrap="mimc", recursion=False)`: 7,200
@@ -31,8 +38,9 @@ the entry points a user calls, and checks every stage:
      2^17 pairs of distinct points, against the complete add and the host
 
 Before each of the paths 5-8 the launch counts are set to 0, and read just
-after: every kernel of that path must have been launched.  It prints a JSON
-line with each kernel's numbers, then, as its last line,
+after: every kernel of that path must have been launched, and Montgomery
+multiplies must stay few (a power is one launch, not one per squaring).
+It prints a JSON line with each kernel's numbers, then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises; without a CUDA
 device it exits non-zero before proving anything.
 """
@@ -64,6 +72,12 @@ KERNEL_BATCH = 32 * MSM_POINTS  # 32 windows of c = 8 over the MSM's points
 MSM_LOG2 = 18  # the fast MSM's size: 2^18 points
 MSM_C, MSM_SERIAL, MSM_GROUP = 13, 32, 32
 STEP_BATCH = 20 * (1 << MSM_LOG2) // MSM_SERIAL  # 20 windows x 8,192 lanes: kernel C's batch
+POW_BATCH = 32  # window sums that one to_affine inverts
+G2_POINTS = 896  # the wrap circuit's 884 G2 points, padded to full serial lanes
+G2_BATCH = 32 * G2_POINTS
+# batches for the device times: the card's work must outlast the host's
+# enqueue, and the operands must not fit the 50 MB L2 cache
+BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
 KZG_SIZE = 4096  # coefficients of one EIP-4844 blob
 CHAIN_ID = 12345
 
@@ -74,14 +88,30 @@ CHAIN_ID = 12345
 HBM_BYTES_PER_S = 3.35e12
 INT32_MADS_PER_S = 67e12 / 4
 MADS_PER_MONT_MUL = 8 * 8 + 8 * 8 + 8  # a·b, m·q and the eight m = t0·n0
+MADS_PER_MONT_SQR = 36 + 8 * 8 + 8  # 28 cross terms once and 8 squares, then as above
+POW_EXPONENT = bn254.Q - 2  # Fermat inversion, the power the paths take
 # per element: bytes moved (each (16,) int32 limb plane 64 B, each mask 4 B,
-# inputs read once, outputs written once) and Montgomery products
+# inputs read once, outputs written once), Montgomery products and Montgomery
+# squarings (the dedicated squaring needs fewer multiply-adds).  The point
+# adds count the generic add, the least the function needs: 11 products and
+# 5 squarings for G1; over Fq2 three Fq products to a product and two to a
+# squaring, all of them real products.  The mixed add of C and D is 7
+# products and 4 squarings.  The power counts one squaring per bit below the
+# top one and one product per set bit below it.  Under a mask the passed
+# elements move their 6 (G2: 12) planes and take no product: `bound` scales
+# the work by the share of elements that are added.
 KERNEL_WORK = {
-    "mont_mul": (3 * 64, 1),
-    "point_add": (9 * 64, 23),
-    "point_scan_step": (8 * 64 + 3 * 4, 11),
-    "point_madd": (8 * 64 + 4, 11),
+    "mont_mul": (3 * 64, 1, 0),
+    "point_add": (9 * 64, 11, 5),
+    "point_scan_step": (8 * 64 + 3 * 4, 7, 4),
+    "point_madd": (8 * 64 + 4, 7, 4),
+    "mont_pow": (2 * 64, bin(POW_EXPONENT).count("1") - 1, POW_EXPONENT.bit_length() - 1),
+    "point_add_g2": (18 * 64, 11 * 3 + 5 * 2, 0),
+    "point_add_masked": (9 * 64 + 4, 11, 5),
+    "point_add_g2_masked": (18 * 64 + 4, 11 * 3 + 5 * 2, 0),
 }
+# the wide multiply-add rate that the probe measures in this run (phase_build)
+PROBED_MADS_PER_S = {"rate": INT32_MADS_PER_S}
 AGGREGATOR = "0x" + "11" * 20
 
 
@@ -110,6 +140,28 @@ def cuda_time_ms(fn, reps: int, groups: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us_per_launch(fn, reps: int = 200) -> float:
+    """The host's cost of one fn() in microseconds: host clock around `reps`
+    calls with no synchronisation inside (the card works behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return secs / reps * 1e6
+
+
+def random_limbs(n: int, device, seed: int) -> torch.Tensor:
+    """(16, n) canonical Fq elements drawn on the card: uniform 16-bit limbs,
+    the top limb below the modulus's."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    limbs = torch.randint(0, 1 << 16, (16, n), generator=gen, device=device, dtype=torch.int32)
+    limbs[15] = limbs[15] % (bn254.Q >> 240)
+    return limbs
+
+
 def device_profile(tag: str, fn) -> None:
     """Run fn() once under torch.profiler and log the card's share of it:
     wall time, device busy time (the sum of the kernels' durations on the
@@ -135,16 +187,42 @@ def device_profile(tag: str, fn) -> None:
         log(f"[{tag}]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
 
 
-def bound(name: str, n: int) -> dict:
+def bound(name: str, n: int, added: float = 1.0, mads_per_s: float = INT32_MADS_PER_S) -> dict:
     """The least time the card could take for one launch of `name` on n
     elements: the larger of bytes over the memory rate and multiply-adds
-    over the integer rate."""
-    nbytes, muls = KERNEL_WORK[name]
-    by_bytes = n * nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n * muls * MADS_PER_MONT_MUL / INT32_MADS_PER_S * 1e3
+    over the integer rate.  `added`: under a mask, the share of elements
+    that are added; the others move two thirds of the planes (one operand
+    in, out again) and take no product."""
+    nbytes, muls, sqrs = KERNEL_WORK[name]
+    mads = muls * MADS_PER_MONT_MUL + sqrs * MADS_PER_MONT_SQR
+    passed = (nbytes - 4) * 2 // 3 + 4  # the mask, one operand in, the output
+    by_bytes = n * (added * nbytes + (1 - added) * passed) / HBM_BYTES_PER_S * 1e3
+    by_ops = n * added * mads / mads_per_s * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None}  # no PyTorch call computes any of the four
+            "library_ms": None}  # no PyTorch call computes any of these functions
+
+
+def timings(name: str, n: int, kernel, plain, plain_reps: int, big_n: int, big_kernel,
+            added: float = 1.0) -> dict:
+    """The three times of a kernel and its bounds: at the path's shape
+    (kernel and plain version), the host's cost of a launch there, and the
+    device time at the large batch with the bound at that batch."""
+    big = bound(name, big_n, added)
+    probed = bound(name, big_n, added, PROBED_MADS_PER_S["rate"])
+    return {
+        "shape": n, **bound(name, n, added),
+        "ms": cuda_time_ms(kernel, 50),
+        "plain_ms": cuda_time_ms(plain, plain_reps),
+        "host_us_per_launch": host_us_per_launch(kernel),
+        "device_batch": big_n,
+        "device_ms": cuda_time_ms(big_kernel, 20),
+        "device_bound_ms": big["bound_ms"],
+        "device_bound_by": big["bound_by"],
+        # the same bound with the multiply-add rate the probe measured
+        "device_probed_bound_ms": probed["bound_ms"],
+        "device_probed_bound_by": probed["bound_by"],
+    }
 
 
 def require_launches(path: str, launches: dict, names) -> None:
@@ -194,17 +272,65 @@ def phase_environment() -> None:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
 
 
-def phase_build() -> None:
+def phase_build(device) -> None:
     t = time.perf_counter()
     kernels.build()
     log(f"[build] kernels built in {time.perf_counter() - t:.1f} s")
     for line in kernels.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    # the integer rate the bounds assume, beside the card's: 8 blocks of 256
+    # threads per SM; the bare wide multiply-add, then chains of Montgomery
+    # products (136 multiply-adds each)
+    blocks = 8 * torch.cuda.get_device_properties(device).multi_processor_count
+    for mode, what, iters in ((0, "mad.wide.u32 on 8 accumulators per thread", 1 << 16),
+                              (1, "Montgomery products, 2 chains per thread", 1 << 11)):
+        mads, _ = kernels.imad_probe(device, mode, blocks, iters=iters)
+        ms = cuda_time_ms(lambda: kernels.imad_probe(device, mode, blocks, iters=iters), 3)
+        log(f"[probe] {what}: {mads} multiply-adds in {ms:.3f} ms = "
+            f"{mads / ms / 1e9:.3f} T multiply-adds/s measured; the bounds assume "
+            f"{INT32_MADS_PER_S / 1e12:.3f} T/s")
+        if mode == 0:
+            PROBED_MADS_PER_S["rate"] = mads / ms * 1e3
 
 
 def _random_fq(rng, n: int) -> list[int]:
     return [int.from_bytes(rng.bytes(32), "little") % bn254.Q for _ in range(n)]
+
+
+def _compare(name: str, got, ref) -> int:
+    """Bit-for-bit equality of two tuples of tensors; returns the max abs
+    err (0) or raises."""
+    err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError(f"{name} disagrees with its plain version (max abs err {err})")
+    return err
+
+
+def _leaves(point) -> tuple:
+    """The limb planes of a G1 point (3) or a G2 point (6), in order."""
+    return tuple(t for coord in point for t in (coord if isinstance(coord, tuple) else (coord,)))
+
+
+def _masks(rng, n: int, device):
+    """All set, none set, mixed (non-zero values other than 1 included)."""
+    mixed = torch.tensor(rng.integers(0, 2, n), dtype=torch.int32, device=device) * 5
+    return torch.ones_like(mixed), torch.zeros_like(mixed), mixed
+
+
+def _check_masked(name, add, plain, ctx, p, q, masks) -> int:
+    """The masked add against its plain version for every mask and both kept
+    operands; a fully passed operand must come out limb for limb."""
+    err = 0
+    for keep in (0, 1):
+        for mask in masks:
+            got = add(ctx, p, q, mask, keep)
+            err = max(err, _compare(f"{name} (keep = {keep})", _leaves(got),
+                                    _leaves(plain(ctx, p, q, mask, keep))))
+        got = add(ctx, p, q, masks[0], keep)
+        if not all(torch.equal(g, k) for g, k in zip(_leaves(got), _leaves((p, q)[keep]))):
+            raise AssertionError(f"{name}: an all-set mask did not pass operand {keep} through")
+    return err
 
 
 def phase_kernels(device) -> dict:
@@ -217,17 +343,16 @@ def phase_kernels(device) -> dict:
     va, vb = _random_fq(rng, KERNEL_BATCH), _random_fq(rng, KERNEL_BATCH)
     va[:4], vb[:4] = [0, 1, Q - 1, Q - 2], [Q - 1, Q - 1, Q - 1, 0]
     a, b = ctx.from_int(va, device), ctx.from_int(vb, device)
-    got = kernels.mont_mul(ctx, a, b)
-    ref = kernels.mont_mul_plain(ctx, a, b)
-    err = int((got.long() - ref.long()).abs().max())
-    if not torch.equal(got, ref):
-        raise AssertionError(f"mont_mul disagrees with its plain version (max abs err {err})")
+    err = _compare("mont_mul", (kernels.mont_mul(ctx, a, b),), (kernels.mont_mul_plain(ctx, a, b),))
+    _phase_carry_edges(device)
+    big_a, big_b = random_limbs(BIG_FIELD, device, 1), random_limbs(BIG_FIELD, device, 2)
     results["mont_mul"] = {
-        "shape": KERNEL_BATCH, **bound("mont_mul", KERNEL_BATCH),
         "max_abs_err": err,
-        "ms": cuda_time_ms(lambda: kernels.mont_mul(ctx, a, b), 50),
-        "plain_ms": cuda_time_ms(lambda: kernels.mont_mul_plain(ctx, a, b), 10),
+        **timings("mont_mul", KERNEL_BATCH, lambda: kernels.mont_mul(ctx, a, b),
+                  lambda: kernels.mont_mul_plain(ctx, a, b), 10,
+                  BIG_FIELD, lambda: kernels.mont_mul(ctx, big_a, big_b)),
     }
+    del big_a, big_b
 
     # real points for the degenerate cases: P+P, P+(-P), inf+P, P+inf
     pts = [bn254.h_ec_mul(k, bn254.G1_GEN) for k in range(1, 7)]
@@ -243,10 +368,7 @@ def phase_kernels(device) -> dict:
     p = coords(P, KERNEL_BATCH - len(P))
     q = coords(Qp, KERNEL_BATCH - len(Qp))
     got3 = kernels.point_add(ctx, p, q)
-    ref3 = kernels.point_add_plain(ctx, p, q)
-    err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got3, ref3))
-    if not all(torch.equal(g, r) for g, r in zip(got3, ref3)):
-        raise AssertionError(f"point_add disagrees with its plain version (max abs err {err})")
+    err = _compare("point_add", got3, kernels.point_add_plain(ctx, p, q))
     # the edge cases mean what they should: affine results against host math
     ax, ay = bn254.to_affine(bn254.FqOps(), bn254.PointJ(*(t[:, : len(P)] for t in got3)))
     xs, ys = ctx.to_int(ax), ctx.to_int(ay)
@@ -255,18 +377,145 @@ def phase_kernels(device) -> dict:
         have = None if (want is None and xs[i] == 0 and ys[i] == 0) else (int(xs[i]), int(ys[i]))
         if have != want:
             raise AssertionError(f"point_add edge case {i} is wrong")
+    big_p = tuple(random_limbs(BIG_POINT, device, 10 + k) for k in range(3))
+    big_q = tuple(random_limbs(BIG_POINT, device, 20 + k) for k in range(3))
     results["point_add"] = {
-        "shape": KERNEL_BATCH, **bound("point_add", KERNEL_BATCH),
         "max_abs_err": err,
-        "ms": cuda_time_ms(lambda: kernels.point_add(ctx, p, q), 50),
-        "plain_ms": cuda_time_ms(lambda: kernels.point_add_plain(ctx, p, q), 5),
+        **timings("point_add", KERNEL_BATCH, lambda: kernels.point_add(ctx, p, q),
+                  lambda: kernels.point_add_plain(ctx, p, q), 5,
+                  BIG_POINT, lambda: kernels.point_add(ctx, big_p, big_q)),
     }
+    masks = _masks(rng, KERNEL_BATCH, device)
+    big_mask = _masks(rng, BIG_POINT, device)[2]
+    added = 1.0 - float((masks[2] != 0).float().mean())
+    results["point_add_masked"] = {
+        "max_abs_err": _check_masked("point_add", kernels.point_add, kernels.point_add_plain,
+                                     ctx, p, q, masks),
+        **timings("point_add_masked", KERNEL_BATCH,
+                  lambda: kernels.point_add(ctx, p, q, masks[2], 1),
+                  lambda: kernels.point_add_plain(ctx, p, q, masks[2], 1), 5,
+                  BIG_POINT, lambda: kernels.point_add(ctx, big_p, big_q, big_mask, 1),
+                  added=added),
+    }
+    del big_p, big_q
     results.update(_phase_step_kernels(device, rng))
+    results["mont_pow"] = _phase_pow_kernel(device, rng)
+    results.update(_phase_g2_kernel(device, rng))
     for name, r in results.items():
         log(f"[kernels] {name}: bit-exact vs plain at (16, {r.pop('shape')}); "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}; host "
+            f"{r['host_us_per_launch']:.1f} us per launch; device {r['device_ms']:.4f} ms at "
+            f"(16, {r['device_batch']}), bound {r['device_bound_ms']:.4f} ms by "
+            f"{r['device_bound_by']} ({r['device_probed_bound_ms']:.4f} ms by "
+            f"{r['device_probed_bound_by']} at the probed multiply-add rate)")
     return results
+
+
+def _phase_carry_edges(device) -> None:
+    """The field core on operands that stress its carry chains (words of all
+    ones, q - 1, R mod q and their like), every pairing, for Fq and Fr:
+    product against the plain version and against python ints, and the
+    dedicated squaring (mont_pow with exponent 2) against the product."""
+    words = [0, 1, 2, (1 << 256) - 1, (1 << 255) - 1, (1 << 224) - 1, 0xFFFFFFFF,
+             0xFFFFFFFF << 224, 1 << 255, 1 << 128]
+    for modulus in (bn254.Q, bn254.R):
+        ctx = bn254.mont_ctx(modulus)
+        vals = sorted({w % modulus for w in words}
+                      | {modulus - 1, modulus - 2, ctx.R_mod, ctx.R2_mod, modulus >> 1})
+        a = ctx.from_int([x for x in vals for _ in vals], device, mont=False)
+        b = ctx.from_int([y for _ in vals for y in vals], device, mont=False)
+        got = kernels.mont_mul(ctx, a, b)
+        _compare("mont_mul on carry edges", (got,), (kernels.mont_mul_plain(ctx, a, b),))
+        rinv = pow(ctx.R, -1, modulus)
+        want = [x * y * rinv % modulus for x in vals for y in vals]
+        if list(ctx.to_int(got, mont=False)) != want:
+            raise AssertionError("mont_mul on carry edges differs from python ints")
+        if not torch.equal(kernels.mont_pow(ctx, a, 2), kernels.mont_mul(ctx, a, a)):
+            raise AssertionError("the squaring differs from the product on carry edges")
+    log("[kernels] field core on carry-edge operands (Fq and Fr): product equals the plain "
+        "version and python ints, squaring equals product")
+
+
+def _phase_pow_kernel(device, rng) -> dict:
+    """`mont_pow` against its plain version and python's pow, Fq and Fr, on
+    0, 1, q - 1 and random values, exponents 0, 1, 2, q - 2 and random."""
+    err = 0
+    for modulus in (bn254.Q, bn254.R):
+        ctx = bn254.mont_ctx(modulus)
+        vals = [0, 1, modulus - 1] + [v % modulus for v in _random_fq(rng, POW_BATCH - 3)]
+        a = ctx.from_int(vals, device)
+        for e in (0, 1, 2, modulus - 2, int.from_bytes(rng.bytes(32), "little")):
+            got = kernels.mont_pow(ctx, a, e)
+            err = max(err, _compare(f"mont_pow (exponent {e})", (got,),
+                                    (kernels.mont_pow_plain(ctx, a, e),)))
+            if list(ctx.to_int(got)) != [pow(v, e, modulus) for v in vals]:
+                raise AssertionError(f"mont_pow differs from python's pow (exponent {e})")
+    ctx = bn254.fq()
+    a = ctx.from_int(_random_fq(rng, POW_BATCH), device)
+    big_a = random_limbs(BIG_POINT, device, 3)
+    return {
+        "max_abs_err": err,
+        **timings("mont_pow", POW_BATCH, lambda: kernels.mont_pow(ctx, a, POW_EXPONENT),
+                  lambda: kernels.mont_pow_plain(ctx, a, POW_EXPONENT), 1,
+                  BIG_POINT, lambda: kernels.mont_pow(ctx, big_a, POW_EXPONENT)),
+    }
+
+
+def _phase_g2_kernel(device, rng) -> dict:
+    """The G2 add, plain and masked, against its plain version, with the
+    degenerate cases on real G2 points checked against host arithmetic."""
+    ctx = bn254.fq()
+    H2 = bn254.HOST_FQ2
+    G2 = (bn254.G2_GEN_X, bn254.G2_GEN_Y)
+    pts = [bn254.h_ec_mul(k, G2, H2) for k in range(1, 7)]
+    P = pts + [pts[0], pts[1], None, pts[2], None]  # ..., P+P, P+(-P), inf+P, P+inf, inf+inf
+    Qp = pts[::-1] + [pts[0], (pts[1][0], H2.neg(pts[1][1])), pts[3], None, None]
+    n = G2_BATCH
+
+    def coords(points):
+        m = n - len(points)
+        xy = [tuple(ctx.from_int([pt[c][j] if pt else 0 for pt in points] + _random_fq(rng, m),
+                                 device) for j in range(2)) for c in range(2)]
+        z0 = ctx.from_int([0 if pt is None else 1 for pt in points] + _random_fq(rng, m), device)
+        z1 = ctx.from_int([0] * len(points) + _random_fq(rng, m), device)
+        return (*xy, (z0, z1))
+
+    p, q = coords(P), coords(Qp)
+    got = kernels.point_add_g2(ctx, p, q)
+    err = _compare("point_add_g2", _leaves(got), _leaves(kernels.point_add_g2_plain(ctx, p, q)))
+    F2 = bn254.Fq2Ops()
+    head = bn254.PointJ(*(tuple(t[:, : len(P)].contiguous() for t in c) for c in got))
+    (x0, x1), (y0, y1) = (F2.to_int(c) for c in bn254.to_affine(F2, head))
+    for i, (u, v) in enumerate(zip(P, Qp)):
+        want = bn254.h_ec_add(u, v, H2) or ((0, 0), (0, 0))
+        if ((int(x0[i]), int(x1[i])), (int(y0[i]), int(y1[i]))) != want:
+            raise AssertionError(f"point_add_g2 edge case {i} is wrong")
+
+    def big_point(seed):
+        return tuple((random_limbs(BIG_POINT, device, seed + 2 * c),
+                      random_limbs(BIG_POINT, device, seed + 2 * c + 1)) for c in range(3))
+
+    big_p, big_q = big_point(30), big_point(40)
+    out = {"point_add_g2": {
+        "max_abs_err": err,
+        **timings("point_add_g2", n, lambda: kernels.point_add_g2(ctx, p, q),
+                  lambda: kernels.point_add_g2_plain(ctx, p, q), 3,
+                  BIG_POINT, lambda: kernels.point_add_g2(ctx, big_p, big_q)),
+    }}
+    masks = _masks(rng, n, device)
+    big_mask = _masks(rng, BIG_POINT, device)[2]
+    added = 1.0 - float((masks[2] != 0).float().mean())
+    out["point_add_g2_masked"] = {
+        "max_abs_err": _check_masked("point_add_g2", kernels.point_add_g2,
+                                     kernels.point_add_g2_plain, ctx, p, q, masks),
+        **timings("point_add_g2_masked", n,
+                  lambda: kernels.point_add_g2(ctx, p, q, masks[2], 0),
+                  lambda: kernels.point_add_g2_plain(ctx, p, q, masks[2], 0), 3,
+                  BIG_POINT, lambda: kernels.point_add_g2(ctx, big_p, big_q, big_mask, 0),
+                  added=added),
+    }
+    return out
 
 
 def _phase_step_kernels(device, rng) -> dict:
@@ -303,16 +552,11 @@ def _phase_step_kernels(device, rng) -> dict:
                        dtype=torch.int32, device=device)
     acc, q_aff = (ax, ay, az), (bx, by)
 
-    def compare(name, got, ref):
-        err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
-        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-            raise AssertionError(f"{name} disagrees with its plain version (max abs err {err})")
-        return err
-
     got_c = kernels.point_scan_step(ctx, acc, q_aff, sgn, flg)
-    err_c = compare("point_scan_step", got_c, kernels.point_scan_step_plain(ctx, acc, q_aff, sgn, flg))
+    err_c = _compare("point_scan_step", got_c,
+                     kernels.point_scan_step_plain(ctx, acc, q_aff, sgn, flg))
     got_d = kernels.point_madd(ctx, acc, q_aff)
-    err_d = compare("point_madd", got_d, kernels.point_madd_plain(ctx, acc, q_aff))
+    err_d = _compare("point_madd", got_d, kernels.point_madd_plain(ctx, acc, q_aff))
     torch.cuda.synchronize()
 
     # the edge cases mean what they should
@@ -338,17 +582,22 @@ def _phase_step_kernels(device, rng) -> dict:
         raise AssertionError("kernel C differs from select, kernel D, restart")
     log(f"[kernels] point_scan_step == sign select + point_madd + restart select at (16, {n})")
 
+    big = tuple(random_limbs(BIG_POINT, device, 50 + k) for k in range(5))
+    big_sgn, big_flg = (_masks(rng, BIG_POINT, device)[2] for _ in range(2))
     return {
         "point_scan_step": {
-            "shape": n, **bound("point_scan_step", n), "max_abs_err": err_c,
-            "ms": cuda_time_ms(lambda: kernels.point_scan_step(ctx, acc, q_aff, sgn, flg), 50),
-            "plain_ms": cuda_time_ms(
-                lambda: kernels.point_scan_step_plain(ctx, acc, q_aff, sgn, flg), 5),
+            "max_abs_err": err_c,
+            **timings("point_scan_step", n,
+                      lambda: kernels.point_scan_step(ctx, acc, q_aff, sgn, flg),
+                      lambda: kernels.point_scan_step_plain(ctx, acc, q_aff, sgn, flg), 5,
+                      BIG_POINT,
+                      lambda: kernels.point_scan_step(ctx, big[:3], big[3:], big_sgn, big_flg)),
         },
         "point_madd": {
-            "shape": n, **bound("point_madd", n), "max_abs_err": err_d,
-            "ms": cuda_time_ms(lambda: kernels.point_madd(ctx, acc, q_aff), 50),
-            "plain_ms": cuda_time_ms(lambda: kernels.point_madd_plain(ctx, acc, q_aff), 5),
+            "max_abs_err": err_d,
+            **timings("point_madd", n, lambda: kernels.point_madd(ctx, acc, q_aff),
+                      lambda: kernels.point_madd_plain(ctx, acc, q_aff), 5,
+                      BIG_POINT, lambda: kernels.point_madd(ctx, big[:3], big[3:])),
         },
     }
 
@@ -382,11 +631,51 @@ def phase_golden(device) -> None:
     log("[golden] tiny configuration on the card: all sha256 digests match")
 
 
+def require_at_most(path: str, launches: dict, name: str, most: int) -> None:
+    if launches[name] > most:
+        raise AssertionError(f"{launches[name]} launches of {name} on the {path} path, "
+                             f"expected at most {most}")
+
+
+class timed_calls:
+    """While active, every call of step 4's parts (`groth16.prove`, each
+    `msm.msm_g1` / `msm.msm_g2` inside it, `groth16.verify`) is synchronised
+    and its wall time kept as (name, size of the first argument, seconds)."""
+
+    TARGETS = ((msm, "msm_g1"), (msm, "msm_g2"), (groth16, "prove"), (groth16, "verify"))
+
+    def __init__(self):
+        self.times = []
+
+    def __enter__(self):
+        self._saved = [getattr(mod, name) for mod, name in self.TARGETS]
+        for (mod, name), fn in zip(self.TARGETS, self._saved):
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def run(first, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(first, *args, **kwargs)
+            torch.cuda.synchronize()
+            size = len(first) if isinstance(first, list) else 0
+            self.times.append((name, size, time.perf_counter() - t))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.TARGETS, self._saved):
+            setattr(mod, name, fn)
+        return False
+
+
 def phase_slice(device) -> dict:
     prover = ps.BatchProver(wrap="mimc", recursion=False, device=device)
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
-    r1, r2, r3, r4, times = drive(prover, list(range(1, SLICE_BLOCKS + 1)))
+    with timed_calls() as calls:
+        r1, r2, r3, r4, times = drive(prover, list(range(1, SLICE_BLOCKS + 1)))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
 
@@ -401,11 +690,21 @@ def phase_slice(device) -> dict:
         raise AssertionError("the final Groth16 proof does not verify")
     if len(base64.b64decode(r1.batch_data)) != 32 * SLICE_BLOCKS + 64:
         raise AssertionError("unexpected batch payload size")
-    require_launches("batch proof", launches, ("mont_mul", "point_add"))
+    require_launches("batch proof", launches,
+                     ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_add_g2",
+                      "point_add_g2_masked"))
+    require_at_most("batch proof", launches, "mont_mul", 200)
+    if [name for name, _, _ in calls.times].count("msm_g2") != 1:
+        raise AssertionError(f"expected one G2 MSM in the batch proof, got {calls.times}")
 
     log(f"[slice] {SLICE_BLOCKS} blocks, {r1.chunk_count} chunks of 4096 rows, mimc wrap")
     for step, s in times.items():
         log(f"[slice] {step}: {s:.3f} s")
+    for name, n_points, s in calls.times:
+        what = f"{name} of {n_points} points" if n_points else f"groth16.{name}, the whole call"
+        log(f"[slice] gen_final_proof: {what}: {s:.3f} s")
+    log(f"[slice] the G1 MSMs together: "
+        f"{sum(s for name, _, s in calls.times if name == 'msm_g1'):.3f} s")
     log(f"[slice] total of the four steps: {sum(times.values()):.3f} s")
     log(f"[slice] max_memory_allocated: {peak / 2**20:.1f} MiB")
     log(f"[slice] launches: {launches}")
@@ -468,7 +767,9 @@ def phase_msm(device, points) -> dict:
     if launches["point_scan_step"] != MSM_SERIAL:
         raise AssertionError(f"kernel C launched {launches['point_scan_step']} times, "
                              f"expected {MSM_SERIAL}")
-    require_launches("fast MSM", launches, ("mont_mul", "point_add", "point_scan_step"))
+    require_launches("fast MSM", launches,
+                     ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_scan_step"))
+    require_at_most("fast MSM", launches, "mont_mul", 16)
 
     log(f"[msm] 2^{MSM_LOG2} points, c = {MSM_C}, serial {MSM_SERIAL}, window group {MSM_GROUP}: "
         "bad = False, result equals the host oracle")
@@ -517,7 +818,7 @@ def phase_kzg(device) -> dict:
         out = fn()
         torch.cuda.synchronize()
         steps[step] = (time.perf_counter() - t, dict(kernels.LAUNCHES))
-        for name, k in kernels.LAUNCHES.items():
+        for name, k in steps[step][1].items():
             total[name] += k
         return out
 
@@ -539,13 +840,15 @@ def phase_kzg(device) -> dict:
         raise AssertionError("open_at's value differs from the host evaluation")
     if not ok or not rejected:
         raise AssertionError(f"verify: right value {ok}, wrong value rejected {rejected}")
-    require_launches("KZG commit", steps["commit"][1], ("mont_mul", "point_add", "point_scan_step"))
-    require_launches("KZG open", steps["open_at"][1], ("mont_mul", "point_add", "point_scan_step"))
+    on_path = ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_scan_step")
+    require_launches("KZG commit", steps["commit"][1], on_path)
+    require_launches("KZG open", steps["open_at"][1], on_path)
+    require_launches("KZG setup", steps["setup_insecure"][1], ("mont_mul", "mont_pow"))
 
     log(f"[kzg] {KZG_SIZE}-point SRS on the card, {KZG_SIZE} coefficients: verify True, "
         "a wrong value rejected, p(z) equals the host evaluation")
-    for step, (secs, counts) in steps.items():
-        log(f"[kzg] {step}: {secs:.3f} s, launches {counts}")
+    for step, (secs, launched) in steps.items():
+        log(f"[kzg] {step}: {secs:.3f} s, launches {launched}")
     log(f"[kzg] verify twice (host pairing): {t_verify:.3f} s")
     log(f"[kzg] max_memory_allocated: {peak / 2**20:.1f} MiB")
     device_profile("kzg commit", lambda: kzg.commit(srs, coeffs))
@@ -590,17 +893,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_environment()
     device = torch.device("cuda")
-    phase_build()
+    phase_build(device)
     timing = phase_kernels(device)
     phase_golden(device)
     paths = [phase_slice(device)]
     points = test_points(device)
     paths += [phase_msm(device, points), phase_kzg(device), phase_madd(device, points)]
-    launches = {name: sum(path[name] for path in paths) for name in kernels.KERNELS}
-    require_launches("main", launches, kernels.KERNELS)
+    launches = {name: sum(path[name] for path in paths) for name in KERNEL_WORK}
+    require_launches("main", launches, KERNEL_WORK)
     rows = [
-        {"name": name, **kernels.KERNELS[name], "launches": launches[name], **timing[name]}
-        for name in kernels.KERNELS
+        {"name": name, **kernels.KERNELS[name],
+         "launches": launches[name], **timing[name]}
+        for name in KERNEL_WORK
     ]
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,13 +1,48 @@
 // Montgomery field arithmetic for the BN254 kernels, one element per thread.
 //
 // Counterpart of `_field_ops` in eigen_zeth_tpu/ops/pallas/ec_pl.py:29
-// (mont_mul, add, sub, dbl, is_zero, select), plus what the scan-step and
-// mixed-add kernels share (neg, the unsafe mixed add).  The TPU kernels hold an
-// element as 16 limbs of 16 bits in uint32 lanes because the VPU has no wide
-// multiplier; here an element lives in eight 32-bit registers and the CIOS
-// inner step uses the 32x32->64 multiplier (a*b + t + c < 2^64).  R stays
+// (mont_mul, add, sub, dbl, is_zero, select), plus what the kernels share
+// beyond it: neg, a dedicated squaring, the unsafe mixed add, and Fq2 =
+// Fq[u]/(u^2 + 1) for the G2 point add.  The TPU kernels hold an element as
+// 16 limbs of 16 bits in uint32 lanes because the VPU has no wide
+// multiplier; here an element lives in eight 32-bit registers.  R stays
 // 2^256, so the Montgomery form, and every output bit, is the same as the
 // JAX package's.
+//
+// What bounds a product on the H100: the integer multiply pipe.  A
+// Montgomery product is 136 32x32->64 multiply-adds (64 for a*b, 64 for m*q,
+// 8 for the m's), each fed a carry by the one before it, so a single chain
+// leaves the pipe idle for most of its latency.  The design:
+//
+//   * every multiply-add is a `mad.lo.cc` / `madc.hi.cc` pair on the same
+//     operands and neighbouring accumulator words, which the assembler
+//     turns into one wide multiply-add with carry in and out
+//     (IMAD.WIDE.U32.X): of the 128 products of a compiled Montgomery
+//     product 121 are such wide multiply-adds, beside about 125
+//     three-input adds that move the carries between the halves
+//     (scripts/sass_histogram.py on sm_90a);
+//   * the accumulator is split by column parity: `E` holds the products
+//     a[0], a[2], a[4], a[6] times b_i (columns 0..7) and `O` those of a[1],
+//     a[3], a[5], a[7] (columns 1..8).  The two carry chains of a row do not
+//     touch each other's words, so two are in flight per thread;
+//   * the word shift of each CIOS round costs nothing: E and O swap roles,
+//     and the one word that changes column is folded into the next row's
+//     chain as its addend;
+//   * a squaring computes the 28 cross products once, doubles them, adds
+//     the 8 diagonal squares and reduces the 16-word result: 108
+//     multiply-adds for 136.
+//
+// The probe in imad_probe.cu puts numbers to it (chip_smoke.py prints them):
+// an H100 at 700 W ran bare wide multiply-adds at 10.1 T/s and chains of
+// these products at 8.2 T multiply-adds/s.
+//
+// No chain can overflow its top word as long as q < 2^255: with a, b < q
+// the running value stays below 2q, and a row adds less than 2^33 q, so
+// everything fits columns 0..8.  The wrappers refuse a wider modulus.
+//
+// Each PTX operation is its own `asm volatile` statement: volatile
+// statements keep their order, and the compiler itself emits nothing that
+// writes the carry flag, so the flag set by one statement reaches the next.
 //
 // Memory layout at the kernel boundary is the package's public one: a batch
 // of B elements is a limb-major (16, B) int32 tensor of 16-bit limbs, so
@@ -17,6 +52,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 
 namespace ezt {
 
@@ -29,9 +65,50 @@ struct Modulus {
   uint32_t n0;  // -q^{-1} mod 2^32
 };
 
+inline Modulus make_modulus(const void* q_words, unsigned n0) {
+  Modulus m;
+  std::memcpy(m.q, q_words, sizeof(m.q));
+  m.n0 = n0;
+  return m;
+}
+
 struct Fe {
   uint32_t w[kWords];
 };
+
+// ---------------------------------------------------------------------------
+// PTX with the carry flag
+
+#define EZT_ASM3(name, ptx)                                                  \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b,           \
+                                           uint32_t c) {                     \
+    uint32_t r;                                                              \
+    asm volatile(ptx " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+    return r;                                                                \
+  }
+#define EZT_ASM2(name, ptx)                                          \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) { \
+    uint32_t r;                                                      \
+    asm volatile(ptx " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));     \
+    return r;                                                        \
+  }
+
+EZT_ASM3(mad_lo_cc, "mad.lo.cc.u32")    // lo(a*b) + c, sets carry
+EZT_ASM3(madc_lo_cc, "madc.lo.cc.u32")  // lo(a*b) + c + carry, sets carry
+EZT_ASM3(madc_hi_cc, "madc.hi.cc.u32")  // hi(a*b) + c + carry, sets carry
+EZT_ASM3(madc_hi, "madc.hi.u32")        // hi(a*b) + c + carry
+EZT_ASM2(add_cc, "add.cc.u32")
+EZT_ASM2(addc_cc, "addc.cc.u32")
+EZT_ASM2(addc, "addc.u32")
+EZT_ASM2(sub_cc, "sub.cc.u32")
+EZT_ASM2(subc_cc, "subc.cc.u32")
+EZT_ASM2(subc, "subc.u32")
+
+#undef EZT_ASM3
+#undef EZT_ASM2
+
+// ---------------------------------------------------------------------------
+// loads, stores, selects
 
 __device__ __forceinline__ Fe load_fe(const int32_t* __restrict__ p, int64_t n,
                                       int64_t i) {
@@ -75,31 +152,27 @@ __device__ __forceinline__ Fe zero_fe() {
   return r;
 }
 
-// a + extra*2^256 - q when that is >= 0, else a (input < 2q).
-__device__ __forceinline__ Fe cond_sub_q(const Fe& a, uint32_t extra,
-                                         const Modulus& m) {
+// ---------------------------------------------------------------------------
+// add, sub, neg
+
+// a - q when that is >= 0, else a (input < 2q < 2^256).
+__device__ __forceinline__ Fe cond_sub_q(const Fe& a, const Modulus& m) {
   Fe d;
-  uint32_t borrow = 0;
+  d.w[0] = sub_cc(a.w[0], m.q[0]);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint64_t s = static_cast<uint64_t>(a.w[k]) - m.q[k] - borrow;
-    d.w[k] = static_cast<uint32_t>(s);
-    borrow = static_cast<uint32_t>(s >> 63);
-  }
-  return select_fe(extra != 0 || borrow == 0, d, a);
+  for (int k = 1; k < kWords; ++k) d.w[k] = subc_cc(a.w[k], m.q[k]);
+  const uint32_t borrow = subc(0, 0);  // 0 or 0xFFFFFFFF
+  return select_fe(borrow != 0, a, d);
 }
 
 __device__ __forceinline__ Fe add_fe(const Fe& a, const Fe& b,
                                      const Modulus& m) {
   Fe s;
-  uint64_t c = 0;
+  s.w[0] = add_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    c += static_cast<uint64_t>(a.w[k]) + b.w[k];
-    s.w[k] = static_cast<uint32_t>(c);
-    c >>= 32;
-  }
-  return cond_sub_q(s, static_cast<uint32_t>(c), m);
+  for (int k = 1; k < kWords - 1; ++k) s.w[k] = addc_cc(a.w[k], b.w[k]);
+  s.w[kWords - 1] = addc(a.w[kWords - 1], b.w[kWords - 1]);
+  return cond_sub_q(s, m);
 }
 
 __device__ __forceinline__ Fe dbl_fe(const Fe& a, const Modulus& m) {
@@ -110,74 +183,324 @@ __device__ __forceinline__ Fe dbl_fe(const Fe& a, const Modulus& m) {
 __device__ __forceinline__ Fe sub_fe(const Fe& a, const Fe& b,
                                      const Modulus& m) {
   Fe d;
-  uint32_t borrow = 0;
+  d.w[0] = sub_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint64_t s = static_cast<uint64_t>(a.w[k]) - b.w[k] - borrow;
-    d.w[k] = static_cast<uint32_t>(s);
-    borrow = static_cast<uint32_t>(s >> 63);
-  }
+  for (int k = 1; k < kWords; ++k) d.w[k] = subc_cc(a.w[k], b.w[k]);
+  const uint32_t borrow = subc(0, 0);
   Fe e;
-  uint64_t c = 0;
+  e.w[0] = add_cc(d.w[0], m.q[0]);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    c += static_cast<uint64_t>(d.w[k]) + m.q[k];
-    e.w[k] = static_cast<uint32_t>(c);
-    c >>= 32;
-  }
+  for (int k = 1; k < kWords - 1; ++k) e.w[k] = addc_cc(d.w[k], m.q[k]);
+  e.w[kWords - 1] = addc(d.w[kWords - 1], m.q[kWords - 1]);
   return select_fe(borrow != 0, e, d);
-}
-
-// CIOS Montgomery product a*b*2^-256 mod q for canonical a, b.
-__device__ __forceinline__ Fe mont_mul_fe(const Fe& a, const Fe& b,
-                                          const Modulus& m) {
-  uint32_t t[kWords + 2];
-#pragma unroll
-  for (int k = 0; k < kWords + 2; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      uint64_t s = static_cast<uint64_t>(a.w[j]) * b.w[i] + t[j] + c;
-      t[j] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-    uint64_t s = static_cast<uint64_t>(t[kWords]) + c;
-    t[kWords] = static_cast<uint32_t>(s);
-    t[kWords + 1] = static_cast<uint32_t>(s >> 32);
-    uint32_t mi = t[0] * m.n0;
-    s = static_cast<uint64_t>(mi) * m.q[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < kWords; ++j) {
-      s = static_cast<uint64_t>(mi) * m.q[j] + t[j] + c;
-      t[j - 1] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-    s = static_cast<uint64_t>(t[kWords]) + c;
-    t[kWords - 1] = static_cast<uint32_t>(s);
-    t[kWords] = t[kWords + 1] + static_cast<uint32_t>(s >> 32);
-  }
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r.w[k] = t[k];
-  return cond_sub_q(r, t[kWords], m);
 }
 
 // -a mod q, with -0 = 0, so the output stays canonical (q - 0 would be q).
 __device__ __forceinline__ Fe neg_fe(const Fe& a, const Modulus& m) {
   Fe d;
-  uint32_t borrow = 0;
+  d.w[0] = sub_cc(m.q[0], a.w[0]);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    uint64_t s = static_cast<uint64_t>(m.q[k]) - a.w[k] - borrow;
-    d.w[k] = static_cast<uint32_t>(s);
-    borrow = static_cast<uint32_t>(s >> 63);
-  }
+  for (int k = 1; k < kWords - 1; ++k) d.w[k] = subc_cc(m.q[k], a.w[k]);
+  d.w[kWords - 1] = subc(m.q[kWords - 1], a.w[kWords - 1]);
   return select_fe(is_zero_fe(a), a, d);
 }
 
+// ---------------------------------------------------------------------------
+// Montgomery product
+
+// T += q*mi with mi = E[0]*n0, which clears column 0.  E: columns 0..7, O:
+// columns 1..8; the carry out of E's chain lands in O[7] (column 8).
+__device__ __forceinline__ void reduce_row(uint32_t (&E)[kWords],
+                                           uint32_t (&O)[kWords],
+                                           const Modulus& m) {
+  const uint32_t mi = E[0] * m.n0;
+  E[0] = mad_lo_cc(m.q[0], mi, E[0]);
+  E[1] = madc_hi_cc(m.q[0], mi, E[1]);
+#pragma unroll
+  for (int j = 2; j < kWords; j += 2) {
+    E[j] = madc_lo_cc(m.q[j], mi, E[j]);
+    E[j + 1] = madc_hi_cc(m.q[j], mi, E[j + 1]);
+  }
+  O[7] = addc(O[7], 0);
+  O[0] = mad_lo_cc(m.q[1], mi, O[0]);
+  O[1] = madc_hi_cc(m.q[1], mi, O[1]);
+#pragma unroll
+  for (int j = 2; j < kWords - 2; j += 2) {
+    O[j] = madc_lo_cc(m.q[j + 1], mi, O[j]);
+    O[j + 1] = madc_hi_cc(m.q[j + 1], mi, O[j + 1]);
+  }
+  O[6] = madc_lo_cc(m.q[7], mi, O[6]);
+  O[7] = madc_hi(m.q[7], mi, O[7]);
+}
+
+// Drop column 0 (E[0] == 0 after reduce_row) and add a*b one column down:
+// O becomes the new even array (columns 0..7) and E the new odd one
+// (columns 1..8).  E[1], which moves to column 0, is added to O[0] and its
+// carry opens the new odd chain; E[k+2] is the addend of the new E[k].
+__device__ __forceinline__ void shift_mul_row(uint32_t (&E)[kWords],
+                                              uint32_t (&O)[kWords],
+                                              const Fe& a, uint32_t b) {
+  O[0] = add_cc(O[0], E[1]);
+#pragma unroll
+  for (int j = 0; j < kWords - 2; j += 2) {
+    E[j] = madc_lo_cc(a.w[j + 1], b, E[j + 2]);
+    E[j + 1] = madc_hi_cc(a.w[j + 1], b, E[j + 3]);
+  }
+  E[6] = madc_lo_cc(a.w[7], b, 0);
+  E[7] = madc_hi(a.w[7], b, 0);
+  O[0] = mad_lo_cc(a.w[0], b, O[0]);
+  O[1] = madc_hi_cc(a.w[0], b, O[1]);
+#pragma unroll
+  for (int j = 2; j < kWords; j += 2) {
+    O[j] = madc_lo_cc(a.w[j], b, O[j]);
+    O[j + 1] = madc_hi_cc(a.w[j], b, O[j + 1]);
+  }
+  E[7] = addc(E[7], 0);
+}
+
+// CIOS Montgomery product a*b*2^-256 mod q for canonical a, b.
+__device__ __forceinline__ Fe mont_mul_fe(const Fe& a, const Fe& b,
+                                          const Modulus& m) {
+  uint32_t e[kWords], o[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; j += 2) {
+    // the first row adds to nothing; written as the other rows' pairs so
+    // that it too becomes wide multiplies
+    e[j] = (j == 0) ? mad_lo_cc(a.w[j], b.w[0], 0)
+                    : madc_lo_cc(a.w[j], b.w[0], 0);
+    e[j + 1] = madc_hi_cc(a.w[j], b.w[0], 0);
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; j += 2) {
+    o[j] = (j == 0) ? mad_lo_cc(a.w[j + 1], b.w[0], 0)
+                    : madc_lo_cc(a.w[j + 1], b.w[0], 0);
+    o[j + 1] = madc_hi_cc(a.w[j + 1], b.w[0], 0);
+  }
+  reduce_row(e, o, m);
+#pragma unroll
+  for (int i = 1; i < kWords; i += 2) {
+    shift_mul_row(e, o, a, b.w[i]);
+    reduce_row(o, e, m);
+    if (i + 1 < kWords) {
+      shift_mul_row(o, e, a, b.w[i + 1]);
+      reduce_row(e, o, m);
+    }
+  }
+  // o is the even array now, e the odd one: drop column 0 and merge
+  Fe r;
+  r.w[0] = add_cc(e[0], o[1]);
+#pragma unroll
+  for (int k = 1; k < kWords - 1; ++k) r.w[k] = addc_cc(e[k], o[k + 1]);
+  r.w[kWords - 1] = addc(e[kWords - 1], 0);
+  return cond_sub_q(r, m);
+}
+
+// Montgomery reduction t*2^-256 mod q of a 16-word t < q*2^256.  Round i
+// clears word i; the carries out of its two chains (columns i+8 and i+9)
+// are kept in `cw` and added once at the end, so no round ripples a carry
+// up to the top.
+__device__ __forceinline__ Fe mont_reduce_wide(uint32_t (&t)[2 * kWords],
+                                               const Modulus& m) {
+  uint32_t cw[kWords];
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) cw[k] = 0;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const uint32_t mi = t[i] * m.n0;
+    t[i] = mad_lo_cc(m.q[0], mi, t[i]);
+    t[i + 1] = madc_hi_cc(m.q[0], mi, t[i + 1]);
+#pragma unroll
+    for (int j = 2; j < kWords; j += 2) {
+      t[i + j] = madc_lo_cc(m.q[j], mi, t[i + j]);
+      t[i + j + 1] = madc_hi_cc(m.q[j], mi, t[i + j + 1]);
+    }
+    cw[i] = addc(cw[i], 0);
+    t[i + 1] = mad_lo_cc(m.q[1], mi, t[i + 1]);
+    t[i + 2] = madc_hi_cc(m.q[1], mi, t[i + 2]);
+#pragma unroll
+    for (int j = 3; j < kWords - 1; j += 2) {
+      t[i + j] = madc_lo_cc(m.q[j], mi, t[i + j]);
+      t[i + j + 1] = madc_hi_cc(m.q[j], mi, t[i + j + 1]);
+    }
+    t[i + 7] = madc_lo_cc(m.q[7], mi, t[i + 7]);
+    if (i < kWords - 1) {
+      t[i + 8] = madc_hi_cc(m.q[7], mi, t[i + 8]);
+      cw[i + 1] = addc(cw[i + 1], 0);
+    } else {
+      t[15] = madc_hi(m.q[7], mi, t[15]);  // the total is below 2^512
+    }
+  }
+  Fe r;
+  r.w[0] = add_cc(t[kWords], cw[0]);
+#pragma unroll
+  for (int k = 1; k < kWords - 1; ++k) r.w[k] = addc_cc(t[kWords + k], cw[k]);
+  r.w[kWords - 1] = addc(t[2 * kWords - 1], cw[kWords - 1]);
+  return cond_sub_q(r, m);
+}
+
+// Montgomery square a*a*2^-256 mod q: the same bits as mont_mul_fe(a, a).
+// The 28 cross products a_i*a_j (i < j) are summed once, in two arrays by
+// the parity of their column (te[k]: column k, to[k]: column k+1) so that
+// each row runs two independent chains, then merged, doubled, and the 8
+// diagonal squares added in one chain over all 16 words.
+__device__ __forceinline__ Fe mont_sqr_fe(const Fe& a, const Modulus& m) {
+  uint32_t te[2 * kWords], to[2 * kWords];
+#pragma unroll
+  for (int k = 0; k < 2 * kWords; ++k) te[k] = to[k] = 0;
+#pragma unroll
+  for (int i = 0; i < kWords - 1; ++i) {
+    // i + j odd: columns i+j, i+j+1 are to[i+j-1], to[i+j].  After row i the
+    // sum fits columns 0..i+8, so a chain that ends below the top column
+    // hands its carry to the next word, and one that ends on it has none.
+    int last = 0;
+#pragma unroll
+    for (int j = i + 1; j < kWords; j += 2) {
+      const int c = i + j;
+      to[c - 1] = (j == i + 1) ? mad_lo_cc(a.w[i], a.w[j], to[c - 1])
+                               : madc_lo_cc(a.w[i], a.w[j], to[c - 1]);
+      last = c;
+      to[c] = (last == i + 7) ? madc_hi(a.w[i], a.w[j], to[c])
+                              : madc_hi_cc(a.w[i], a.w[j], to[c]);
+    }
+    if (last != i + 7) to[last + 1] = addc(to[last + 1], 0);
+    // i + j even: columns i+j, i+j+1 are te[i+j], te[i+j+1]
+    last = 0;
+#pragma unroll
+    for (int j = i + 2; j < kWords; j += 2) {
+      const int c = i + j;
+      te[c] = (j == i + 2) ? mad_lo_cc(a.w[i], a.w[j], te[c])
+                           : madc_lo_cc(a.w[i], a.w[j], te[c]);
+      last = c + 1;
+      te[c + 1] = (last == i + 8) ? madc_hi(a.w[i], a.w[j], te[c + 1])
+                                  : madc_hi_cc(a.w[i], a.w[j], te[c + 1]);
+    }
+    if (last != 0 && last != i + 8) te[last + 1] = addc(te[last + 1], 0);
+  }
+  uint32_t t[2 * kWords];
+  t[0] = 0;  // no cross product reaches column 0
+  t[1] = add_cc(te[1], to[0]);
+#pragma unroll
+  for (int k = 2; k < 2 * kWords - 1; ++k) t[k] = addc_cc(te[k], to[k - 1]);
+  t[15] = addc(te[15], to[14]);
+  t[1] = add_cc(t[1], t[1]);
+#pragma unroll
+  for (int k = 2; k < 2 * kWords - 1; ++k) t[k] = addc_cc(t[k], t[k]);
+  t[15] = addc(t[15], t[15]);
+  t[0] = mad_lo_cc(a.w[0], a.w[0], 0);
+  t[1] = madc_hi_cc(a.w[0], a.w[0], t[1]);
+#pragma unroll
+  for (int i = 1; i < kWords - 1; ++i) {
+    t[2 * i] = madc_lo_cc(a.w[i], a.w[i], t[2 * i]);
+    t[2 * i + 1] = madc_hi_cc(a.w[i], a.w[i], t[2 * i + 1]);
+  }
+  t[14] = madc_lo_cc(a.w[7], a.w[7], t[14]);
+  t[15] = madc_hi(a.w[7], a.w[7], t[15]);
+  return mont_reduce_wide(t, m);
+}
+
+// ---------------------------------------------------------------------------
+// Fq2 = Fq[u]/(u^2 + 1): an element is c0 + c1*u.
+
+struct Fe2 {
+  Fe c0, c1;
+};
+
+// One interface over Fq and Fq2 elements, for the point add that G1 and G2
+// share (kPlanes limb planes per element at the kernel boundary).
+struct FqField {
+  using El = Fe;
+  static constexpr int kPlanes = 1;
+  __device__ __forceinline__ static El load(const int32_t* const* p, int64_t n,
+                                            int64_t i) {
+    return load_fe(p[0], n, i);
+  }
+  __device__ __forceinline__ static void store(int32_t* const* p, int64_t n,
+                                               int64_t i, const El& a) {
+    store_fe(p[0], n, i, a);
+  }
+  __device__ __forceinline__ static El zero() { return zero_fe(); }
+  __device__ __forceinline__ static bool is_zero(const El& a) {
+    return is_zero_fe(a);
+  }
+  __device__ __forceinline__ static El select(bool pred, const El& a,
+                                              const El& b) {
+    return select_fe(pred, a, b);
+  }
+  __device__ __forceinline__ static El add(const El& a, const El& b,
+                                           const Modulus& m) {
+    return add_fe(a, b, m);
+  }
+  __device__ __forceinline__ static El sub(const El& a, const El& b,
+                                           const Modulus& m) {
+    return sub_fe(a, b, m);
+  }
+  __device__ __forceinline__ static El dbl(const El& a, const Modulus& m) {
+    return dbl_fe(a, m);
+  }
+  __device__ __forceinline__ static El neg(const El& a, const Modulus& m) {
+    return neg_fe(a, m);
+  }
+  __device__ __forceinline__ static El mul(const El& a, const El& b,
+                                           const Modulus& m) {
+    return mont_mul_fe(a, b, m);
+  }
+  __device__ __forceinline__ static El sqr(const El& a, const Modulus& m) {
+    return mont_sqr_fe(a, m);
+  }
+};
+
+struct Fq2Field {
+  using El = Fe2;
+  static constexpr int kPlanes = 2;
+  __device__ __forceinline__ static El load(const int32_t* const* p, int64_t n,
+                                            int64_t i) {
+    return {load_fe(p[0], n, i), load_fe(p[1], n, i)};
+  }
+  __device__ __forceinline__ static void store(int32_t* const* p, int64_t n,
+                                               int64_t i, const El& a) {
+    store_fe(p[0], n, i, a.c0);
+    store_fe(p[1], n, i, a.c1);
+  }
+  __device__ __forceinline__ static El zero() { return {zero_fe(), zero_fe()}; }
+  __device__ __forceinline__ static bool is_zero(const El& a) {
+    return is_zero_fe(a.c0) && is_zero_fe(a.c1);
+  }
+  __device__ __forceinline__ static El select(bool pred, const El& a,
+                                              const El& b) {
+    return {select_fe(pred, a.c0, b.c0), select_fe(pred, a.c1, b.c1)};
+  }
+  __device__ __forceinline__ static El add(const El& a, const El& b,
+                                           const Modulus& m) {
+    return {add_fe(a.c0, b.c0, m), add_fe(a.c1, b.c1, m)};
+  }
+  __device__ __forceinline__ static El sub(const El& a, const El& b,
+                                           const Modulus& m) {
+    return {sub_fe(a.c0, b.c0, m), sub_fe(a.c1, b.c1, m)};
+  }
+  __device__ __forceinline__ static El dbl(const El& a, const Modulus& m) {
+    return {dbl_fe(a.c0, m), dbl_fe(a.c1, m)};
+  }
+  __device__ __forceinline__ static El neg(const El& a, const Modulus& m) {
+    return {neg_fe(a.c0, m), neg_fe(a.c1, m)};
+  }
+  // Karatsuba, three Fq products:
+  // (a0 + a1 u)(b0 + b1 u) = (a0 b0 - a1 b1) + ((a0+a1)(b0+b1) - a0 b0 - a1 b1) u
+  __device__ __forceinline__ static El mul(const El& a, const El& b,
+                                           const Modulus& m) {
+    const Fe t0 = mont_mul_fe(a.c0, b.c0, m);
+    const Fe t1 = mont_mul_fe(a.c1, b.c1, m);
+    const Fe t2 = mont_mul_fe(add_fe(a.c0, a.c1, m), add_fe(b.c0, b.c1, m), m);
+    return {sub_fe(t0, t1, m), sub_fe(sub_fe(t2, t0, m), t1, m)};
+  }
+  // Two Fq products: (a0 + a1 u)^2 = (a0+a1)(a0-a1) + 2 a0 a1 u
+  __device__ __forceinline__ static El sqr(const El& a, const Modulus& m) {
+    const Fe t0 = mont_mul_fe(add_fe(a.c0, a.c1, m), sub_fe(a.c0, a.c1, m), m);
+    const Fe t1 = mont_mul_fe(a.c0, a.c1, m);
+    return {t0, dbl_fe(t1, m)};
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Unsafe mixed add (madd-2007-bl with Z2 = 1, 7M + 4S) of the Jacobian point
 // (X1, Y1, Z1) and the affine point (X2, Y2): no doubling and no infinity
 // branch.  Counterpart of eigen_zeth_tpu/ops/bn254.py:point_madd_unsafe and
@@ -189,20 +512,20 @@ __device__ __forceinline__ bool madd_unsafe_fe(const Fe& X1, const Fe& Y1,
                                                const Fe& Z1, const Fe& X2,
                                                const Fe& Y2, Fe& X3, Fe& Y3,
                                                Fe& Z3, const Modulus& m) {
-  const Fe z1z1 = mont_mul_fe(Z1, Z1, m);
+  const Fe z1z1 = mont_sqr_fe(Z1, m);
   const Fe u2 = mont_mul_fe(X2, z1z1, m);
   const Fe s2 = mont_mul_fe(Y2, mont_mul_fe(Z1, z1z1, m), m);
   const Fe h = sub_fe(u2, X1, m);
-  const Fe hh = mont_mul_fe(h, h, m);
+  const Fe hh = mont_sqr_fe(h, m);
   const Fe i_ = dbl_fe(dbl_fe(hh, m), m);
   const Fe j_ = mont_mul_fe(h, i_, m);
   const Fe r = dbl_fe(sub_fe(s2, Y1, m), m);
   const Fe v = mont_mul_fe(X1, i_, m);
-  X3 = sub_fe(sub_fe(mont_mul_fe(r, r, m), j_, m), dbl_fe(v, m), m);
+  X3 = sub_fe(sub_fe(mont_sqr_fe(r, m), j_, m), dbl_fe(v, m), m);
   Y3 = sub_fe(mont_mul_fe(r, sub_fe(v, X3, m), m),
               dbl_fe(mont_mul_fe(Y1, j_, m), m), m);
   const Fe zh = add_fe(Z1, h, m);
-  Z3 = sub_fe(sub_fe(mont_mul_fe(zh, zh, m), z1z1, m), hh, m);
+  Z3 = sub_fe(sub_fe(mont_sqr_fe(zh, m), z1z1, m), hh, m);
   return is_zero_fe(h) || is_zero_fe(Z1);
 }
 

@@ -1,125 +1,230 @@
-// Kernel B: complete, branch-free Jacobian point add on the a = 0 curve.
+// Kernel B: complete Jacobian point add on the a = 0 curve, for G1 (over Fq)
+// and G2 (over Fq2) from one source, with the scans' select inside.
 //
 // Replaces the Pallas kernel `_point_add_kernel`
 // (eigen_zeth_tpu/ops/pallas/ec_pl.py:118, entry `point_add_pallas` :404).
-// Same function as eigen_zeth_tpu/ops/bn254.py:point_add: infinity is
-// z == 0, and doubling, infinity and P == -Q are resolved by selects, so
-// every thread runs the same instruction stream.
+// Same function as eigen_zeth_tpu/ops/bn254.py:206 `point_add`: infinity is
+// z == 0, and doubling, infinity and P == -Q are resolved per element.
+// `ezt_point_add_g2` is that function over `Fq2Ops`
+// (eigen_zeth_tpu/ops/bn254.py:117), which the JAX package reaches from
+// `msm_g2` (eigen_zeth_tpu/ops/msm.py:1036) with every Fq product a launch
+// of the Montgomery-multiply kernel.
 //
-// What bounds it on the H100: ~34 Montgomery multiplies per add (the generic
-// path and the doubling path are both computed, as on the TPU) against
-// 9 x 64 bytes of limb traffic, so it is bound by the integer multiply pipe
-// and, above all, by registers: six inputs alone hold 48 words.  The design
-// keeps one point pair per thread entirely in registers (no shared memory,
-// every intermediate stays on chip, one pass over device memory) and caps
-// the block at 128 threads so the launch fits the register file whatever
-// ptxas allocates; `-Xptxas -v` in the build log reports registers and
-// spills.
+// With a mask, element i of the output is operand p (keep = 0) or q
+// (keep = 1) with its limbs unchanged where mask[i] != 0, whatever the add
+// would have given: `select(mask, kept, add(p, q))`, the form every add of
+// the MSM scans has.  So an all-zero accumulator is a valid operand there.
+//
+// What bounds it on the H100: the integer multiply pipe.  The generic add
+// (add-2007-bl with Z3 = ((Z1+Z2)^2 - Z1Z1 - Z2Z2)*H) is 11 products and 5
+// squarings over 9 x 64 bytes of limb traffic (G2: the same count of Fq2
+// operations, three Fq products to a product and two to a squaring, over
+// 18 x 64 bytes).  The design:
+//
+//   * the field core of bn254_field.cuh: two carry chains in flight per
+//     thread, a dedicated squaring;
+//   * the doubling (dbl-2009-l, 2 products and 5 squarings) runs only in a
+//     warp where the vote finds a lane with H == 0, R == 0 and neither
+//     operand at infinity, which in an MSM is rare; the branch is the same
+//     for the whole warp, and each lane still takes the result its own
+//     flags select;
+//   * a warp whose lanes all pass an operand through does no arithmetic,
+//     and a lane that passes an operand (by the mask or because the other
+//     is at infinity) reads it again at the end and stores with the rest of
+//     its warp, so every output line is written once;
+//   * registers are the limit (six G1 inputs alone are 48 words, six G2
+//     inputs 96).  Operands are loaded where they are first used, and the
+//     operand an infinity passes through is read again at the end instead
+//     of being held.  `__launch_bounds__` asks for 4 blocks of 128 threads
+//     per SM for both: 128 registers, with a few dozen bytes of spills for
+//     G1 and about 1.5 KB for G2.  Measured at 2^18 pairs on an H100
+//     (scripts/tune_point_add.py), G1: 0.100 ms so, 0.105 ms at 148
+//     registers without spills (2 or 3 blocks of 128, 4 or 6 of 64), 0.131
+//     ms with one block of 256, 0.111 ms at 80 registers.  G2: 0.487 ms so,
+//     0.56 ms at 168 registers, 0.63-0.65 ms at the 255 cap (180 bytes of
+//     spills), 0.62 ms at 96: more warps to hide the chains' latency are
+//     worth the spills up to four blocks.  ptxas's registers and spills
+//     are in the build log.
 
 #include <cuda_runtime.h>
-
-#include <cstring>
 
 #include "bn254_field.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+// Block size and blocks per SM that `__launch_bounds__` asks for; the build
+// may set them to compare variants (scripts/tune_point_add.py).
+#ifndef EZT_ADD_THREADS
+#define EZT_ADD_THREADS 128
+#endif
+#ifndef EZT_ADD_G1_BLOCKS
+#define EZT_ADD_G1_BLOCKS 4
+#endif
+#ifndef EZT_ADD_G2_BLOCKS
+#define EZT_ADD_G2_BLOCKS 4
+#endif
 
-using ezt::Fe;
+constexpr int kThreads = EZT_ADD_THREADS;
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
 using ezt::Modulus;
 
-__global__ void __launch_bounds__(kThreads)
-    point_add_kernel(const int32_t* __restrict__ ax,
-                     const int32_t* __restrict__ ay,
-                     const int32_t* __restrict__ az,
-                     const int32_t* __restrict__ bx,
-                     const int32_t* __restrict__ by,
-                     const int32_t* __restrict__ bz, int32_t* __restrict__ ox,
-                     int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                     int64_t n, Modulus m) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  using namespace ezt;
-  const Fe X1 = load_fe(ax, n, i), Y1 = load_fe(ay, n, i), Z1 = load_fe(az, n, i);
-  const Fe X2 = load_fe(bx, n, i), Y2 = load_fe(by, n, i), Z2 = load_fe(bz, n, i);
+// Limb-plane pointers of one launch: p = (x, y, z), q = (x, y, z), out =
+// (x, y, z), each coordinate F::kPlanes planes of (16, n) int32.
+template <class F>
+struct PointArgs {
+  const int32_t* p[3][F::kPlanes];
+  const int32_t* q[3][F::kPlanes];
+  int32_t* out[3][F::kPlanes];
+  const int32_t* mask;  // (n,) or null
+  int keep;             // with a mask: 0 passes p, 1 passes q
+};
 
-  const Fe z1z1 = mont_mul_fe(Z1, Z1, m);
-  const Fe z2z2 = mont_mul_fe(Z2, Z2, m);
-  const Fe u1 = mont_mul_fe(X1, z2z2, m);
-  const Fe u2 = mont_mul_fe(X2, z1z1, m);
-  const Fe s1 = mont_mul_fe(mont_mul_fe(Y1, Z2, m), z2z2, m);
-  const Fe s2 = mont_mul_fe(mont_mul_fe(Y2, Z1, m), z1z1, m);
-  const Fe h = sub_fe(u2, u1, m);
-  const Fe rr = sub_fe(s2, s1, m);
+// The sum of the lane's pair of points into (X3, Y3, Z3), for every lane of a
+// warp at once (both votes need all 32 lanes).  Lanes without `work` run on
+// zeros.  Returns 0 where the sum stands, 1 where operand p passes (q at
+// infinity), 2 where q passes (p at infinity; inf + inf = q, an infinity
+// too).
+template <class F>
+__device__ __forceinline__ int add_warp(const PointArgs<F>& args, int64_t n,
+                                        int64_t i, bool work, const Modulus& m,
+                                        typename F::El& X3, typename F::El& Y3,
+                                        typename F::El& Z3) {
+  using El = typename F::El;
+  auto load = [&](const int32_t* const* planes) {
+    return work ? F::load(planes, n, i) : F::zero();
+  };
+  const El Z1 = load(args.p[2]), Z2 = load(args.q[2]);
+  const bool p_inf = F::is_zero(Z1);
+  const bool q_inf = F::is_zero(Z2);
+  const El z1z1 = F::sqr(Z1, m);
+  const El z2z2 = F::sqr(Z2, m);
+  // 2*Z1*Z2 as (Z1 + Z2)^2 - Z1Z1 - Z2Z2: a squaring for a product
+  const El zz = F::sub(F::sub(F::sqr(F::add(Z1, Z2, m), m), z1z1, m), z2z2, m);
+  const El u1 = F::mul(load(args.p[0]), z2z2, m);
+  const El h = F::sub(F::mul(load(args.q[0]), z1z1, m), u1, m);
+  const El s1 = F::mul(F::mul(load(args.p[1]), Z2, m), z2z2, m);
+  const El rr = F::sub(F::mul(F::mul(load(args.q[1]), Z1, m), z1z1, m), s1, m);
 
-  const bool h_zero = is_zero_fe(h);
-  const bool r_zero = is_zero_fe(rr);
-  const bool p_inf = is_zero_fe(Z1);
-  const bool q_inf = is_zero_fe(Z2);
+  const bool h_zero = F::is_zero(h);
+  const bool r_zero = F::is_zero(rr);
+  const bool both = work && !p_inf && !q_inf;
+  const bool use_dbl = both && h_zero && r_zero;
+  const bool make_inf = both && h_zero && !r_zero;
 
-  // generic add (add-2007-bl with z3 = 2*Z1*Z2*h)
-  const Fe h2 = dbl_fe(h, m);
-  const Fe i_ = mont_mul_fe(h2, h2, m);
-  const Fe j_ = mont_mul_fe(h, i_, m);
-  const Fe r2 = dbl_fe(rr, m);
-  const Fe v = mont_mul_fe(u1, i_, m);
-  const Fe x3 = sub_fe(sub_fe(mont_mul_fe(r2, r2, m), j_, m), dbl_fe(v, m), m);
-  const Fe y3 = sub_fe(mont_mul_fe(r2, sub_fe(v, x3, m), m),
-                       dbl_fe(mont_mul_fe(s1, j_, m), m), m);
-  const Fe z3 = mont_mul_fe(dbl_fe(mont_mul_fe(Z1, Z2, m), m), h, m);
+  // generic add (add-2007-bl)
+  Z3 = F::mul(zz, h, m);
+  const El i_ = F::sqr(F::dbl(h, m), m);
+  const El j_ = F::mul(h, i_, m);
+  const El r2 = F::dbl(rr, m);
+  const El v = F::mul(u1, i_, m);
+  X3 = F::sub(F::sub(F::sqr(r2, m), j_, m), F::dbl(v, m), m);
+  Y3 = F::sub(F::mul(r2, F::sub(v, X3, m), m), F::dbl(F::mul(s1, j_, m), m),
+              m);
 
-  // doubling (dbl-2009-l, a = 0)
-  const Fe A = mont_mul_fe(X1, X1, m);
-  const Fe B = mont_mul_fe(Y1, Y1, m);
-  const Fe C = mont_mul_fe(B, B, m);
-  const Fe xb = add_fe(X1, B, m);
-  const Fe t = mont_mul_fe(xb, xb, m);
-  const Fe D = dbl_fe(sub_fe(sub_fe(t, A, m), C, m), m);
-  const Fe E = add_fe(dbl_fe(A, m), A, m);
-  const Fe F = mont_mul_fe(E, E, m);
-  const Fe xd = sub_fe(F, dbl_fe(D, m), m);
-  const Fe c8 = dbl_fe(dbl_fe(dbl_fe(C, m), m), m);
-  const Fe yd = sub_fe(mont_mul_fe(E, sub_fe(D, xd, m), m), c8, m);
-  const Fe zd = dbl_fe(mont_mul_fe(Y1, Z1, m), m);
+  if (__any_sync(kFullWarp, use_dbl)) {
+    // doubling of p (dbl-2009-l, a = 0), operands read again
+    const El X1 = load(args.p[0]), Y1 = load(args.p[1]);
+    const El A = F::sqr(X1, m);
+    const El B = F::sqr(Y1, m);
+    const El C = F::sqr(B, m);
+    const El t = F::sqr(F::add(X1, B, m), m);
+    const El D = F::dbl(F::sub(F::sub(t, A, m), C, m), m);
+    const El E = F::add(F::dbl(A, m), A, m);
+    const El xd = F::sub(F::sqr(E, m), F::dbl(D, m), m);
+    const El c8 = F::dbl(F::dbl(F::dbl(C, m), m), m);
+    const El yd = F::sub(F::mul(E, F::sub(D, xd, m), m), c8, m);
+    const El zd = F::dbl(F::mul(Y1, load(args.p[2]), m), m);
+    X3 = F::select(use_dbl, xd, X3);
+    Y3 = F::select(use_dbl, yd, Y3);
+    Z3 = F::select(use_dbl, zd, Z3);
+  }
+  Z3 = F::select(make_inf, F::zero(), Z3);
+  return p_inf ? 2 : (q_inf ? 1 : 0);
+}
 
-  const bool use_dbl = h_zero && r_zero && !p_inf && !q_inf;
-  const bool make_inf = h_zero && !r_zero && !p_inf && !q_inf;
-  const bool q_only = q_inf && !p_inf;
+template <class F, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    point_add_kernel(PointArgs<F> args, int64_t n, Modulus m) {
+  using El = typename F::El;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool active = i < n;
+  const bool pass = active && args.mask != nullptr && args.mask[i] != 0;
+  const bool work = active && !pass;
+  El X3 = F::zero(), Y3 = F::zero(), Z3 = F::zero();
+  int passes = pass ? 1 + (args.keep != 0) : 0;  // 0 none, 1 p, 2 q
+  // every lane of the warp reaches the votes, in or out of range
+  if (__any_sync(kFullWarp, work)) {
+    const int inf = add_warp<F>(args, n, i, work, m, X3, Y3, Z3);
+    if (work) passes = inf;
+  }
+  if (!active) return;
+  if (passes != 0) {
+    // the operand that passes is read again (limbs of 16 bits come back as
+    // they went in), so that the lane stores with the rest of its warp
+    const int32_t* src[3][F::kPlanes];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int k = 0; k < F::kPlanes; ++k)
+        src[c][k] = passes == 2 ? args.q[c][k] : args.p[c][k];
+    X3 = F::load(src[0], n, i);
+    Y3 = F::load(src[1], n, i);
+    Z3 = F::load(src[2], n, i);
+  }
+  F::store(args.out[0], n, i, X3);
+  F::store(args.out[1], n, i, Y3);
+  F::store(args.out[2], n, i, Z3);
+}
 
-  Fe X3 = select_fe(use_dbl, xd, x3);
-  Fe Y3 = select_fe(use_dbl, yd, y3);
-  Fe Z3 = select_fe(use_dbl, zd, z3);
-  Z3 = select_fe(make_inf, zero_fe(), Z3);
-  X3 = select_fe(p_inf, X2, select_fe(q_only, X1, X3));
-  Y3 = select_fe(p_inf, Y2, select_fe(q_only, Y1, Y3));
-  Z3 = select_fe(p_inf, Z2, select_fe(q_only, Z1, Z3));
-
-  store_fe(ox, n, i, X3);
-  store_fe(oy, n, i, Y3);
-  store_fe(oz, n, i, Z3);
+template <class F, int kMinBlocks>
+int launch(const void* const* p, const void* const* q, void* const* out,
+           const void* mask, int keep, long long n, const void* q_words,
+           unsigned n0, void* stream) {
+  PointArgs<F> args;
+  for (int c = 0; c < 3; ++c)
+    for (int k = 0; k < F::kPlanes; ++k) {
+      const int at = c * F::kPlanes + k;
+      args.p[c][k] = static_cast<const int32_t*>(p[at]);
+      args.q[c][k] = static_cast<const int32_t*>(q[at]);
+      args.out[c][k] = static_cast<int32_t*>(out[at]);
+    }
+  args.mask = static_cast<const int32_t*>(mask);
+  args.keep = keep;
+  long long blocks = (n + kThreads - 1) / kThreads;
+  point_add_kernel<F, kMinBlocks>
+      <<<static_cast<unsigned>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(args, n,
+                                              ezt::make_modulus(q_words, n0));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// p = (ax, ay, az), q = (bx, by, bz), out = (ox, oy, oz): device pointers to
-// (16, n) int32 limb planes in Montgomery form; q_words: host pointer to the
-// field modulus as 8 little-endian 32-bit words.  Returns the cudaError_t of
-// the launch (0 on success).
+// G1.  p = (ax, ay, az), q = (bx, by, bz), out = (ox, oy, oz): device
+// pointers to (16, n) int32 limb planes in Montgomery form; q_words: host
+// pointer to the field modulus as 8 little-endian 32-bit words; mask: device
+// pointer to an (n,) int32 mask or null; keep: which operand a set mask
+// passes (0 = p, 1 = q).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int ezt_point_add(const void* ax, const void* ay, const void* az,
                              const void* bx, const void* by, const void* bz,
                              void* ox, void* oy, void* oz, long long n,
-                             const void* q_words, unsigned n0, void* stream) {
-  Modulus m;
-  std::memcpy(m.q, q_words, sizeof(m.q));
-  m.n0 = n0;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  point_add_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ax), static_cast<const int32_t*>(ay),
-      static_cast<const int32_t*>(az), static_cast<const int32_t*>(bx),
-      static_cast<const int32_t*>(by), static_cast<const int32_t*>(bz),
-      static_cast<int32_t*>(ox), static_cast<int32_t*>(oy),
-      static_cast<int32_t*>(oz), n, m);
-  return static_cast<int>(cudaGetLastError());
+                             const void* q_words, unsigned n0,
+                             const void* mask, int keep, void* stream) {
+  const void* p[3] = {ax, ay, az};
+  const void* q[3] = {bx, by, bz};
+  void* out[3] = {ox, oy, oz};
+  return launch<ezt::FqField, EZT_ADD_G1_BLOCKS>(p, q, out, mask, keep, n, q_words, n0, stream);
+}
+
+// G2.  planes: 18 device pointers to (16, n) int32 limb planes, in the order
+// p.x.c0, p.x.c1, p.y.c0, p.y.c1, p.z.c0, p.z.c1, then q's six, then the six
+// of the output.  The rest as for G1.
+extern "C" int ezt_point_add_g2(const void* const* planes, long long n,
+                                const void* q_words, unsigned n0,
+                                const void* mask, int keep, void* stream) {
+  return launch<ezt::Fq2Field, EZT_ADD_G2_BLOCKS>(planes, planes + 6,
+                                  const_cast<void* const*>(planes + 12), mask,
+                                  keep, n, q_words, n0, stream);
 }

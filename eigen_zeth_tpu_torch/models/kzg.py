@@ -106,7 +106,7 @@ def setup_insecure(n: int, tau: int, device, on_device: bool = True) -> Srs:
         bit = ((taus[j // 16] >> (j % 16)) & 1).bool()
         px = tx[:, j : j + 1].expand(16, n)
         py = ty[:, j : j + 1].expand(16, n)
-        acc = G.select(bit, G.add(acc, PointJ(px, py, one)), acc)
+        acc = G.add_select(~bit, acc, PointJ(px, py, one), keep=0)
     ax, ay = bn254.to_affine(F, acc)
     return Srs(ax, ay, F.is_zero(acc.z), g2_tau)
 

@@ -5,9 +5,10 @@ package's: a batch of field elements is a limb-major (16, ...) tensor of
 16-bit limbs, stored here as int32, in Montgomery form with R = 2^256.
 
 Plain PyTorch carries the limb arithmetic (add, sub, neg, compares); every
-Montgomery multiply goes through `kernels.mont_mul`, which launches the
-hand-written CUDA kernel for a CUDA tensor at every batch size and takes
-the plain version only for a CPU tensor.
+Montgomery multiply goes through `kernels.mont_mul` and every power
+(Fermat inversion) through `kernels.mont_pow`, which launch the hand-written
+CUDA kernels for a CUDA tensor at every batch size and take the plain
+versions only for a CPU tensor.
 
 Carry chains are resolved without a 16-step loop: after one local pass
 every limb is in [0, 2^16] (or [-1, 2^16) for borrows), and the remaining
@@ -176,6 +177,8 @@ class MontCtx:
         the CPU (kernels.mont_mul decides by device)."""
         from . import kernels
 
+        if a.shape == b.shape and a.dim() == 2 and a.is_contiguous() and b.is_contiguous():
+            return kernels.mont_mul(self, a, b)  # already the kernel's (16, n) operands
         shape = _bshape(a, b)
         a2 = a.expand(shape).reshape(L, -1).contiguous()
         b2 = b.expand(shape).reshape(L, -1).contiguous()
@@ -193,18 +196,12 @@ class MontCtx:
         return self.mont_mul(a, a)
 
     def mont_pow(self, a, exponent: int):
-        """a^e (Montgomery in/out) for a host-known exponent (square and
-        multiply, LSB first)."""
-        result = self.one_mont(a.shape[1:], a.device)
-        base = a
-        e = exponent
-        while e:
-            if e & 1:
-                result = self.mont_mul(result, base)
-            e >>= 1
-            if e:
-                base = self.mont_sq(base)
-        return result
+        """a^e (Montgomery in/out) for a host-known exponent: one launch of
+        the power kernel for CUDA tensors, square and multiply over the
+        plain product on the CPU (kernels.mont_pow decides by device)."""
+        from . import kernels
+
+        return kernels.mont_pow(self, a.reshape(L, -1).contiguous(), exponent).reshape(a.shape)
 
     def inv(self, a):
         """a^{-1} via Fermat; inv(0) = 0."""

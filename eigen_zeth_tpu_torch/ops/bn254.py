@@ -5,9 +5,9 @@
   * Fq2 = Fq[u]/(u^2+1) built on top
   * Jacobian point add/double written once against a small field-ops
     interface, so G1 (Fq) and G2 (Fq2) share the formulas — branch-free
-    (infinity / P == Q / P == -Q resolved by selects).  The G1 add of the
-    MSM goes to kernel B instead (ops/msm.py:ECGroup), and the unsafe
-    mixed add on G1 to kernel D
+    (infinity / P == Q / P == -Q resolved by selects).  The adds of the
+    MSMs go to kernel B instead, G1 and G2 alike (ops/msm.py:ECGroup),
+    and the unsafe mixed add on G1 to kernel D
   * the host reference (python ints, affine) used by tests, setup and the
     Groth16 verifier
 
@@ -109,10 +109,13 @@ class Fq2Ops:
 
     Both coordinates, and all Fq products of several Fq2 products, go
     through one stacked Fq call each, so an Fq2 op costs the dispatches of
-    one Fq op."""
+    one Fq op.  plain=True multiplies with the plain version of kernel A on
+    any device (the reference that the G2 point-add kernel is held
+    against)."""
 
-    def __init__(self):
-        self.fq = FqOps()
+    def __init__(self, ctx: MontCtx | None = None, plain: bool = False):
+        self.fq = FqOps(ctx, plain=plain)
+        self.plain = plain
 
     def _pairwise(self, op, a, b):
         out = op(torch.stack(a, dim=1), torch.stack(b, dim=1))

@@ -1,24 +1,32 @@
 """The hand-written CUDA kernels of the port: build, wrappers, plain versions.
 
-Four kernels replace the four Pallas kernels of the JAX package:
+Four kernels replace the four Pallas kernels of the JAX package, and two
+more entry points of A's and B's sources take over work that the JAX
+package does with many launches of those kernels:
 
   A mont_mul         csrc/mont_mul.cu    eigen_zeth_tpu/ops/pallas/mont_pl.py:30
+    mont_pow         csrc/mont_mul.cu    eigen_zeth_tpu/ops/bigint.py:342
   B point_add        csrc/point_add.cu   eigen_zeth_tpu/ops/pallas/ec_pl.py:118
+    point_add_g2     csrc/point_add.cu   eigen_zeth_tpu/ops/bn254.py:206
   C point_scan_step  csrc/scan_step.cu   eigen_zeth_tpu/ops/pallas/ec_pl.py:242
   D point_madd       csrc/point_madd.cu  eigen_zeth_tpu/ops/pallas/ec_pl.py:186
 
 A and B carry the batch proof's MSMs; C is the serial step of the fast G1
 MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
-add behind bn254.point_madd_unsafe.  Each source notes what bounds it on
-the H100 and what its design does about it.  The sources are compiled with
-nvcc for sm_90a (one nvcc per source, all started together) and linked into
-one shared library with a plain C interface, at first use, into
-`_build/<hash of the sources>/` next to this package, and loaded with
-ctypes.
+add behind bn254.point_madd_unsafe.  `mont_pow` is a whole power (Fermat
+inversion) in one launch; `point_add_g2` is B over Fq2; both point adds take
+an optional mask that passes one operand through (the select of the MSM
+scans).  Each source notes what bounds it on the H100 and what its design
+does about it.  The sources are compiled with nvcc for sm_90a (one nvcc per
+source, all started together) and linked into one shared library with a
+plain C interface, at first use, into `_build/<hash of the sources>/` next
+to this package, and loaded with ctypes.  `csrc/imad_probe.cu` measures the
+card's integer multiply-add rate and is no kernel of any path.
 
 Each wrapper takes its plain PyTorch version only for a CPU tensor.  For a
 CUDA tensor it launches the kernel or raises; nothing falls back.  Each
-launch adds one to `LAUNCHES[name]`.
+launch adds one to `LAUNCHES[name]`; a point add's launch with a mask also
+adds one to `LAUNCHES[name + "_masked"]`.
 """
 
 from __future__ import annotations
@@ -61,12 +69,27 @@ KERNELS = {
         "source": "eigen_zeth_tpu_torch/csrc/point_madd.cu",
         "replaces": "eigen_zeth_tpu/ops/pallas/ec_pl.py:186",
     },
+    "mont_pow": {
+        "route": "cuda",
+        "source": "eigen_zeth_tpu_torch/csrc/mont_mul.cu",
+        "replaces": "eigen_zeth_tpu/ops/bigint.py:342",
+    },
+    "point_add_g2": {
+        "route": "cuda",
+        "source": "eigen_zeth_tpu_torch/csrc/point_add.cu",
+        "replaces": "eigen_zeth_tpu/ops/bn254.py:206",
+    },
 }
+# the point adds under a mask (the scans' select): the same entries, counted
+# and timed as rows of their own
+for _name in ("point_add", "point_add_g2"):
+    KERNELS[_name + "_masked"] = KERNELS[_name]
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
 _lib = None
+_fns: dict = {}  # kernel name -> its C function, filled by _load
 
 
 def reset_launches() -> None:
@@ -128,22 +151,38 @@ def ptxas_report() -> str:
     return (build().parent / "ptxas.log").read_text()
 
 
+_VP, _LL, _UI, _CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
+# the C entry `ezt_<name>` of each kernel; after the tensors' pointers: n, the
+# modulus words, n0, extras, stream
+SIGNATURES = {
+    "mont_mul": [_VP] * 3 + [_LL, _VP, _UI, _VP],
+    "mont_pow": [_VP] * 2 + [_LL, _VP, _UI, _VP, _VP, _VP],
+    "point_add": [_VP] * 9 + [_LL, _VP, _UI, _VP, _CI, _VP],
+    "point_add_g2": [_VP, _LL, _VP, _UI, _VP, _CI, _VP],
+    "point_scan_step": [_VP] * 11 + [_LL, _VP, _UI, _VP, _VP],
+    "point_madd": [_VP] * 9 + [_LL, _VP, _UI, _VP],
+}
+
+
+def bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> dict:
+    """The C functions `ezt_<name>` of a built library, with their types."""
+    fns = {}
+    for name in names:
+        fns[name] = getattr(lib, "ezt_" + name)
+        fns[name].argtypes, fns[name].restype = SIGNATURES[name], _CI
+    return fns
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            vp = ctypes.c_void_p
-            lib.ezt_mont_mul.argtypes = [vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_uint, vp]
-            lib.ezt_mont_mul.restype = ctypes.c_int
-            lib.ezt_point_add.argtypes = [vp] * 9 + [ctypes.c_longlong, vp, ctypes.c_uint, vp]
-            lib.ezt_point_add.restype = ctypes.c_int
-            lib.ezt_point_scan_step.argtypes = (
-                [vp] * 11 + [ctypes.c_longlong, vp, ctypes.c_uint, vp, vp]
-            )
-            lib.ezt_point_scan_step.restype = ctypes.c_int
-            lib.ezt_point_madd.argtypes = [vp] * 9 + [ctypes.c_longlong, vp, ctypes.c_uint, vp]
-            lib.ezt_point_madd.restype = ctypes.c_int
+            fns = bind(lib)
+            lib.ezt_imad_probe.argtypes = [_VP, _CI, _CI, _CI, _CI, _VP, _UI,
+                                           ctypes.POINTER(_LL), _VP]
+            lib.ezt_imad_probe.restype = _CI
+            _fns.update(fns)  # all at once: a launch on another thread sees all or none
             _lib = lib
     return _lib
 
@@ -151,16 +190,21 @@ def _load():
 def _check_limbs(name: str, tensors) -> int:
     """All (16, n) int32, contiguous, on one CUDA device; returns n."""
     first = tensors[0]
+    index, shape = first.get_device(), first.shape
+    if index < 0:
+        raise ValueError(f"{name}: operands must share one CUDA device")
+    if len(shape) != 2 or shape[0] != 16:
+        raise ValueError(f"{name}: expected (16, n) limbs, got {tuple(shape)}")
     for t in tensors:
-        if t.device != first.device or t.device.type != "cuda":
+        if t.get_device() != index:
             raise ValueError(f"{name}: operands must share one CUDA device")
-        if t.dtype != torch.int32:
+        if t.dtype is not torch.int32:
             raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
-        if t.dim() != 2 or t.shape != first.shape or t.shape[0] != 16:
+        if t.shape != shape:
             raise ValueError(f"{name}: expected matching (16, n) limbs, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: limbs must be contiguous")
-    return first.shape[1]
+    return shape[1]
 
 
 def _check_masks(name: str, masks, like: torch.Tensor) -> None:
@@ -179,22 +223,45 @@ def _words(value: int) -> ctypes.Array:
     return (ctypes.c_uint32 * 8)(*((value >> (32 * i)) & 0xFFFFFFFF for i in range(8)))
 
 
-def _launch(name: str, ctx, tensors, n: int, *extra) -> None:
-    """Launch `ezt_<name>` over n elements on the current stream of the
-    tensors' device and count it; raise if the card refuses the launch.
-    Arguments: the tensors' pointers, n, the modulus words, n0, `extra`."""
-    lib = _load()
-    qw = _words(ctx.q)
-    device = tensors[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, "ezt_" + name)(
-            *(t.data_ptr() for t in tensors), n, ctypes.cast(qw, ctypes.c_void_p), ctx.n0_32,
-            *extra, stream,
-        )
+class _Consts:
+    """What a launch needs of a MontCtx, made once per context: the modulus
+    and R mod q as host word arrays (kept alive here) and their addresses."""
+
+    def __init__(self, ctx):
+        if ctx.q >> 255:
+            raise ValueError("the CUDA field core needs a modulus below 2^255")
+        self._keep = (_words(ctx.q), _words(ctx.R_mod))
+        self.q, self.one = (ctypes.cast(w, ctypes.c_void_p) for w in self._keep)
+        self.n0 = ctx.n0_32
+
+
+def _consts(ctx) -> _Consts:
+    c = getattr(ctx, "_kernel_consts", None)
+    if c is None:
+        c = ctx._kernel_consts = _Consts(ctx)
+    return c
+
+
+def _launch(name: str, ctx, pointers, device, n: int, *extra) -> None:
+    """Launch `ezt_<name>` over n elements on the current stream of `device`
+    and count it; raise if the card refuses the launch.  Arguments:
+    `pointers`, n, the modulus words, n0, `extra`, the stream."""
+    if not _fns:
+        _load()
+    fn, c = _fns[name], _consts(ctx)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*pointers, n, c.q, c.n0, *extra, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*pointers, n, c.q, c.n0, *extra,
+                    torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def _pointers(tensors):
+    return [t.data_ptr() for t in tensors]
 
 
 # ---------------------------------------------------------------------------
@@ -203,12 +270,12 @@ def _launch(name: str, ctx, tensors, n: int, *extra) -> None:
 
 def mont_mul(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a·b·R^{-1} mod ctx.q on (16, n) int32 limbs (canonical in and out)."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if not (a.is_cuda or b.is_cuda):
         return mont_mul_plain(ctx, a, b)
     n = _check_limbs("mont_mul", (a, b))
     out = torch.empty_like(a)
     if n:
-        _launch("mont_mul", ctx, (a, b, out), n)
+        _launch("mont_mul", ctx, (a.data_ptr(), b.data_ptr(), out.data_ptr()), a.device, n)
     return out
 
 
@@ -235,32 +302,114 @@ def mont_mul_plain(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ctx._cond_sub_q(hi, extra).to(torch.int32)
 
 
+def mont_pow(ctx, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent (Montgomery in and out) on (16, n) int32 limbs, for a host
+    integer 0 <= exponent < 2^256: one launch for the whole square-and-multiply
+    chain.  a^0 = one for every a, so inv(0) = 0^(q-2) = 0."""
+    if not a.is_cuda:
+        return mont_pow_plain(ctx, a, exponent)
+    if not 0 <= exponent < 1 << 256:
+        raise ValueError("mont_pow: the exponent must lie in [0, 2^256)")
+    n = _check_limbs("mont_pow", (a,))
+    out = torch.empty_like(a)
+    if n:
+        e = _words(exponent)
+        _launch("mont_pow", ctx, (a.data_ptr(), out.data_ptr()), a.device, n,
+                ctypes.cast(e, ctypes.c_void_p), _consts(ctx).one)
+    return out
+
+
+def mont_pow_plain(ctx, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """Plain PyTorch version of `mont_pow`: square and multiply, LSB first,
+    every product `mont_mul_plain` (the JAX package's loop,
+    eigen_zeth_tpu/ops/bigint.py:342)."""
+    result = ctx.one_mont(a.shape[1:], a.device)
+    base = a
+    e = exponent
+    while e:
+        if e & 1:
+            result = mont_mul_plain(ctx, result, base)
+        e >>= 1
+        if e:
+            base = mont_mul_plain(ctx, base, base)
+    return result
+
+
 # ---------------------------------------------------------------------------
-# kernel B: complete Jacobian G1 add
+# kernel B: complete Jacobian add, G1 and G2, with the scans' select
 
 
-def point_add(ctx, p, q):
+def _launch_add(name: str, ctx, pointers, like: torch.Tensor, mask, keep: int) -> None:
+    """Launch a point add over like.shape[1] elements, with or without a mask."""
+    if mask is None:
+        tail = (None, 0)
+    else:
+        if keep not in (0, 1):
+            raise ValueError(f"{name}: keep must be 0 (pass p) or 1 (pass q)")
+        _check_masks(name, (mask,), like)
+        tail = (mask.data_ptr(), keep)
+    _launch(name, ctx, pointers, like.device, like.shape[1], *tail)
+    if mask is not None:
+        LAUNCHES[name + "_masked"] += 1
+
+
+def _select_kept(mask, kept, added):
+    return tuple(torch.where(mask != 0, k, a) for k, a in zip(kept, added))
+
+
+def point_add(ctx, p, q, mask: torch.Tensor | None = None, keep: int = 0):
     """Complete G1 Jacobian add on (16, n) int32 coordinate limbs.
 
-    p, q: (x, y, z) tuples; returns (x3, y3, z3)."""
+    p, q: (x, y, z) tuples; returns (x3, y3, z3).  With an (n,) int32 mask,
+    element i is p (keep = 0) or q (keep = 1), limbs unchanged, where
+    mask[i] != 0, and the sum elsewhere."""
     tensors = tuple(p) + tuple(q)
-    if all(t.device.type == "cpu" for t in tensors):
-        return point_add_plain(ctx, p, q)
+    if not any(t.is_cuda for t in tensors):
+        return point_add_plain(ctx, p, q, mask, keep)
     n = _check_limbs("point_add", tensors)
     outs = tuple(torch.empty_like(tensors[0]) for _ in range(3))
     if n:
-        _launch("point_add", ctx, tensors + outs, n)
+        _launch_add("point_add", ctx, _pointers(tensors + outs), tensors[0], mask, keep)
     return outs
 
 
-def point_add_plain(ctx, p, q):
+def point_add_plain(ctx, p, q, mask: torch.Tensor | None = None, keep: int = 0):
     """Plain PyTorch version of kernel B: bn254.point_add over the plain
-    field ops (no kernel launch)."""
+    field ops, then the select (no kernel launch)."""
     from . import bn254
 
     F = bn254.FqOps(ctx, plain=True)
+    out = tuple(bn254.point_add(F, bn254.PointJ(*p), bn254.PointJ(*q)))
+    return out if mask is None else _select_kept(mask, (p, q)[keep], out)
+
+
+def point_add_g2(ctx, p, q, mask: torch.Tensor | None = None, keep: int = 0):
+    """Complete G2 Jacobian add.  p, q: (x, y, z) tuples of Fq2 coordinates,
+    each a (c0, c1) pair of (16, n) int32 limbs over the base field `ctx`;
+    returns the same structure.  The mask works as in `point_add`."""
+    tensors = tuple(t for point in (p, q) for coord in point for t in coord)
+    if not any(t.is_cuda for t in tensors):
+        return point_add_g2_plain(ctx, p, q, mask, keep)
+    n = _check_limbs("point_add_g2", tensors)
+    outs = tuple(torch.empty_like(tensors[0]) for _ in range(6))
+    if n:
+        planes = (ctypes.c_void_p * 18)(*_pointers(tensors + outs))
+        _launch_add("point_add_g2", ctx, (ctypes.cast(planes, ctypes.c_void_p),), tensors[0],
+                    mask, keep)
+    return tuple((outs[2 * c], outs[2 * c + 1]) for c in range(3))
+
+
+def point_add_g2_plain(ctx, p, q, mask: torch.Tensor | None = None, keep: int = 0):
+    """Plain PyTorch version of `point_add_g2`: bn254.point_add over the
+    plain Fq2 ops, then the select (no kernel launch)."""
+    from . import bn254
+
+    F = bn254.Fq2Ops(ctx, plain=True)
     out = bn254.point_add(F, bn254.PointJ(*p), bn254.PointJ(*q))
-    return tuple(out)
+    if mask is None:
+        return tuple(out)
+    kept = (p, q)[keep]
+    return tuple(_select_kept(mask, k, o) for k, o in zip(kept, out))
 
 
 # ---------------------------------------------------------------------------
@@ -276,16 +425,15 @@ def point_scan_step(ctx, acc, q_aff, sgn: torch.Tensor, flg: torch.Tensor):
     hit H == 0 or Z1 == 0 outside a flag.  Returns (x3, y3, z3, bad), bad
     an (n,) int32 tensor of 0 / 1."""
     tensors = tuple(acc) + tuple(q_aff)
-    if all(t.device.type == "cpu" for t in tensors + (sgn, flg)):
+    if not any(t.is_cuda for t in tensors + (sgn, flg)):
         return point_scan_step_plain(ctx, acc, q_aff, sgn, flg)
     n = _check_limbs("point_scan_step", tensors)
     _check_masks("point_scan_step", (sgn, flg), tensors[0])
     outs = tuple(torch.empty_like(tensors[0]) for _ in range(3))
     bad = torch.empty_like(sgn)
     if n:
-        one = _words(ctx.R_mod)
-        _launch("point_scan_step", ctx, tensors + (sgn, flg) + outs + (bad,), n,
-                ctypes.cast(one, ctypes.c_void_p))
+        _launch("point_scan_step", ctx, _pointers(tensors + (sgn, flg) + outs + (bad,)),
+                tensors[0].device, n, _consts(ctx).one)
     return outs + (bad,)
 
 
@@ -319,13 +467,13 @@ def point_madd(ctx, p, q_aff):
     bad), bad an (n,) int32 tensor: 1 where H == 0 or Z1 == 0, and there
     the three coordinates mean nothing."""
     tensors = tuple(p) + tuple(q_aff)
-    if all(t.device.type == "cpu" for t in tensors):
+    if not any(t.is_cuda for t in tensors):
         return point_madd_plain(ctx, p, q_aff)
     n = _check_limbs("point_madd", tensors)
     outs = tuple(torch.empty_like(tensors[0]) for _ in range(3))
     bad = torch.empty_like(tensors[0][0])
     if n:
-        _launch("point_madd", ctx, tensors + outs + (bad,), n)
+        _launch("point_madd", ctx, _pointers(tensors + outs + (bad,)), tensors[0].device, n)
     return outs + (bad,)
 
 
@@ -337,3 +485,26 @@ def point_madd_plain(ctx, p, q_aff):
     F = bn254.FqOps(ctx, plain=True)
     out, collide = bn254.point_madd_unsafe(F, bn254.PointJ(*p), *q_aff)
     return tuple(out) + (collide.to(torch.int32),)
+
+
+# ---------------------------------------------------------------------------
+# the integer-rate probe (a measurement, on no path)
+
+
+def imad_probe(device, mode: int, blocks: int, threads: int = 256, iters: int = 4096):
+    """Launch csrc/imad_probe.cu on `device`: mode 0 times the bare wide
+    multiply-add, mode 1 chains of Montgomery products over Fq.  Returns (the
+    multiply-adds the launch executes, its output tensor); the caller times
+    it."""
+    from . import bn254
+
+    lib = _load()
+    c = _consts(bn254.fq())
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=device)
+    mads = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = lib.ezt_imad_probe(out.data_ptr(), mode, blocks, threads, iters, c.q, c.n0,
+                                ctypes.byref(mads), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"imad_probe: kernel launch failed with cudaError {rc}")
+    return mads.value * blocks * threads, out

@@ -12,18 +12,19 @@ one axis:
      `serial` steps along each lane, then a short scan over the lanes
   3. one scatter of the segment-end sums into the bucket table
   4. Σ_b b·B_b as the total of the reverse (suffix) scan of the buckets
-Every group op is `ECGroup.add`: the G1 add goes to kernel B
-(ops/kernels.py) at every size, and the G2 add is the generic Jacobian add
-over Fq2, whose Fq products go to kernel A.
+Every group op of the scans is `ECGroup.add_select`, an add whose select
+(pass one operand through where a mask is set) runs inside the kernel: the
+G1 add goes to kernel B (ops/kernels.py) at every size and the G2 add to
+the same kernel over Fq2, one launch per add.
 
 Fast G1 schedule (`g1_window_sums_fast`, `msm_g1_fast`, `msm_g1_device`,
 `msm_g1_table`): signed digits halve the buckets and let c grow to 13;
 phase 1 walks `serial` steps along each lane, each step ONE launch of
 kernel C (sign select + unsafe mixed add + segment restart + collision
 flag); the lane tails, the bucket correction and the bucket reduction use
-complete adds (kernel B) at 1/serial of the width; each bucket's sum is
-gathered from its segment end, found with a searchsorted on the sorted
-digits.  An unsafe add that met P == +-Q or an accumulator at infinity
+complete adds with the select inside (kernel B) at 1/serial of the width;
+each bucket's sum is gathered from its segment end, found with a
+searchsorted on the sorted digits.  An unsafe add that met P == +-Q or an accumulator at infinity
 raises `bad`, and the entry points then recompute through `msm_g1`.
 
 The window sums come back to the host affine, and the Horner combine
@@ -127,22 +128,42 @@ def _first_leaf(tree) -> torch.Tensor:
 
 
 class ECGroup:
-    """The EC group op as the MSM machinery sees it (elements: PointJ)."""
+    """The EC group op as the MSM machinery sees it (elements: PointJ).
+
+    Over the dispatching field ops every add is kernel B on CUDA tensors
+    (`kernels.point_add` for G1, `kernels.point_add_g2` for G2) and its
+    plain version on the CPU; over plain field ops it is the generic
+    `bn254.point_add`."""
 
     def __init__(self, F):
         self.F = F
         self._is_g1 = isinstance(F, bn254.FqOps)
 
     def add(self, a: PointJ, b: PointJ) -> PointJ:
+        return self._add(a, b, None, 0)
+
+    def add_select(self, mask, a: PointJ, b: PointJ, keep: int) -> PointJ:
+        """select(mask, kept, a + b) with kept = a (keep = 0) or b (keep = 1):
+        where the mask is set the kept operand's limbs pass unchanged,
+        whatever the add would give.  mask: bool, broadcastable to the batch
+        shape of the points."""
+        return self._add(a, b, mask, keep)
+
+    def _add(self, a: PointJ, b: PointJ, mask, keep: int) -> PointJ:
         shape = _first_leaf(a).shape
         if _first_leaf(b).shape != shape:
             shape = torch.broadcast_shapes(shape, _first_leaf(b).shape)
             a, b = (_tmap(lambda t: t.expand(shape), x) for x in (a, b))
-        if not self._is_g1:
-            return point_add(self.F, a, b)
+        if self.F.plain:
+            out = point_add(self.F, a, b)
+            return out if mask is None else self.select(mask, (a, b)[keep], out)
         flat = lambda t: t.reshape(16, -1).contiguous()  # noqa: E731
-        out = kernels.point_add(self.F.ctx, tuple(map(flat, a)), tuple(map(flat, b)))
-        return PointJ(*(t.reshape(shape) for t in out))
+        if mask is not None:
+            mask = mask.expand(shape[1:]).reshape(-1).to(torch.int32)
+        ctx = self.F.ctx if self._is_g1 else self.F.fq.ctx
+        add = kernels.point_add if self._is_g1 else kernels.point_add_g2
+        out = add(ctx, _tmap(flat, tuple(a)), _tmap(flat, tuple(b)), mask, keep)
+        return PointJ(*_tmap(lambda t: t.reshape(shape), out))
 
     def select(self, pred, a, b):
         return _tmap(lambda x, y: torch.where(pred, x, y), a, b)
@@ -160,7 +181,8 @@ def _hs_scan(G, pts, flags):
         s = 1 << d
         sh_v = _tmap(lambda l: torch.roll(l, s, dims=-1), v)
         valid = idx >= s
-        v = G.select(valid & ~f, G.add(sh_v, v), v)
+        # f carries a leading 1 for the limb axis; the mask has batch rank
+        v = G.add_select(~(valid & ~f)[0], sh_v, v, keep=1)
         f = f | (valid & torch.roll(f, s, dims=-1))
     return v
 
@@ -187,7 +209,7 @@ def _blocked_seg_scan(G, pts, flags, serial: int = DEFAULT_SERIAL):
     outs = []
     for i in range(S):
         val = _tmap(lambda l: l[..., i], pts_r)
-        acc = G.select(lane_start[..., i], val, G.add(acc, val))
+        acc = G.add_select(lane_start[..., i], acc, val, keep=1)
         outs.append(acc)
     scanned = _tmap(lambda *ls: torch.stack(ls, dim=-1), *outs)
 
@@ -199,7 +221,7 @@ def _blocked_seg_scan(G, pts, flags, serial: int = DEFAULT_SERIAL):
 
     head = torch.cumsum(flags_r.to(torch.int32), dim=-1) == 0
     inflow_b = _tmap(lambda l: l[..., None].expand(l.shape + (S,)), inflow)
-    fixed = G.select(head, G.add(scanned, inflow_b), scanned)
+    fixed = G.add_select(~head, scanned, inflow_b, keep=0)
     return _tmap(lambda l: l.reshape(l.shape[:-2] + (n,)), fixed)
 
 
@@ -369,7 +391,14 @@ def g1_window_sums_fast(F, xs, ys, inf, mag, sign, c: int = 13,
         val = _tmap(lambda l: l[end_step, :, g_idx, end_lane].movedim(-1, 0), scanned)
         inflow_b = _tmap(lambda l: l[:, g_idx, end_lane], inflow)
         needs = present & (seg_start < end_lane * S_)
-        corrected = G.add(val, G.select(needs, inflow_b, _tmap(torch.zeros_like, inflow_b)))
+        # val + (needs ? inflow : infinity): a complete add with infinity passes
+        # val's limbs through, which is what the mask does inside the kernel.
+        # One difference from the JAX package (eigen_zeth_tpu/ops/msm.py, the
+        # same correction): where val itself is at infinity its x and y limbs
+        # pass through here, and come out all zero there (inf + inf selects the
+        # second operand).  The point is the same infinity, and z = 0 in a
+        # phase-1 accumulator has already raised `bad`.
+        corrected = G.add_select(~needs, val, inflow_b, keep=0)
         ez = torch.where(present, corrected.z, torch.zeros_like(corrected.z))
         E = PointJ(corrected.x[..., 1:], corrected.y[..., 1:], ez[..., 1:])
 

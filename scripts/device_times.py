@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Device times of kernels A, B, C and D of the port, for one checkout or
+several in turn, on one NVIDIA GPU.
+
+    python3 scripts/device_times.py [ROOT ...]
+
+Each ROOT is a checkout that holds `eigen_zeth_tpu_torch/` (default: this
+one).  To compare two commits on one card, unpack the other with
+`git archive` and name the roots in the order parent, change, change, parent.
+Every root runs in a process of its own, builds its kernels from its own
+csrc/, and prints one JSON line: per kernel the time of one launch at a batch
+where the card's work outlasts the host's enqueue ((16, 2^20) random canonical
+Fq elements for A, (16, 2^18) for the point kernels; the operands exceed the
+L2 cache), CUDA events around 20 back-to-back launches, median of 3.  Only
+the calls that every version of the port has are used: the unmasked wrappers.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
+
+
+def measure(root: str) -> dict:
+    sys.path.insert(0, root)
+    import torch
+
+    from eigen_zeth_tpu_torch.ops import bn254, kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("device_times: needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def limbs(n):
+        t = torch.randint(0, 1 << 16, (16, n), generator=gen, device=dev, dtype=torch.int32)
+        t[15] %= bn254.Q >> 240
+        return t
+
+    def time_ms(fn, reps=20, groups=3):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(groups):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        return statistics.median(times)
+
+    ctx = bn254.fq()
+    a, b = limbs(BIG_FIELD), limbs(BIG_FIELD)
+    p, q = tuple(limbs(BIG_POINT) for _ in range(3)), tuple(limbs(BIG_POINT) for _ in range(3))
+    sgn, flg = (torch.randint(0, 2, (BIG_POINT,), generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(2))
+    return {
+        "root": root,
+        "mont_mul": time_ms(lambda: kernels.mont_mul(ctx, a, b)),
+        "point_add": time_ms(lambda: kernels.point_add(ctx, p, q)),
+        "point_scan_step": time_ms(lambda: kernels.point_scan_step(ctx, p, q[:2], sgn, flg)),
+        "point_madd": time_ms(lambda: kernels.point_madd(ctx, p, q[:2])),
+    }
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        print(json.dumps(measure(sys.argv[2])))
+        return 0
+    roots = sys.argv[1:] or [str(Path(__file__).resolve().parent.parent)]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for root in roots:
+        subprocess.run([sys.executable, __file__, "--one", str(Path(root).resolve())], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

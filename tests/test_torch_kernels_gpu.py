@@ -8,8 +8,9 @@ is not installed:
 
 Inputs come from numpy with a fixed seed, at the batch proof's shapes (32
 windows x 1,326 MSM points; the scan step and the mixed add at a quarter of
-that).  Tolerance: none — kernel and plain version must agree bit for bit,
-and the MSMs must equal the host sum of scalar multiples.
+that; the G2 and masked adds at an eighth).  Tolerance: none — kernel and
+plain version must agree bit for bit, and the MSMs must equal the host sum
+of scalar multiples.
 """
 
 import numpy as np
@@ -156,6 +157,174 @@ def test_cuda_tensors_never_take_a_plain_version():
         kernels.point_scan_step(ctx, acc, q_aff, sgn.cpu(), flg)
     with pytest.raises(ValueError):
         kernels.point_madd(ctx, acc, (q_aff[0].cpu(), q_aff[1]))
+    with pytest.raises(TypeError):
+        kernels.mont_pow(ctx, acc[0].long(), 5)
+    with pytest.raises(ValueError):
+        kernels.mont_pow(ctx, acc[0], 1 << 256)
+    with pytest.raises(ValueError):
+        kernels.mont_pow(ctx, acc[0][:, ::2], 5)
+    with pytest.raises(TypeError):
+        kernels.point_add(ctx, acc, acc, mask=sgn.bool())
+    with pytest.raises(ValueError):
+        kernels.point_add(ctx, acc, acc, mask=sgn.cpu())
+    with pytest.raises(ValueError):
+        kernels.point_add(ctx, acc, acc, mask=sgn, keep=2)
+    pair = lambda t: (t, t)  # noqa: E731
+    g2 = tuple(map(pair, acc))
+    with pytest.raises(ValueError):
+        kernels.point_add_g2(ctx, g2, tuple((t.cpu(), t) for t in acc))
+    with pytest.raises(ValueError):
+        kernels.point_add_g2(ctx, g2, g2, mask=sgn[:32].contiguous())
+    with pytest.raises(ValueError):
+        kernels.mont_mul(bigint.MontCtx((1 << 256) - 189), acc[0], acc[0])
+
+
+EDGE_WORDS = [0, 1, 2, (1 << 256) - 1, (1 << 255) - 1, (1 << 224) - 1, 0xFFFFFFFF,
+              0xFFFFFFFF << 224, 1 << 255, 1 << 128]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modulus", [bn254.Q, bn254.R], ids=["fq", "fr"])
+def test_field_core_on_carry_edge_operands(modulus):
+    """Operands whose words are all ones, q - 1, R mod q and their like, in
+    every pairing: a wrong carry shows on these and rarely on random values.
+    The squaring inside mont_pow(a, 2) must equal the product a·a."""
+    dev = _cuda()
+    ctx = bigint.mont_ctx(modulus)
+    vals = sorted({v % modulus for v in EDGE_WORDS} | {modulus - 1, modulus - 2, ctx.R_mod,
+                                                       ctx.R2_mod, modulus >> 1})
+    # from_int(mont=False): the listed values ARE the Montgomery words
+    a = ctx.from_int([x for x in vals for _ in vals], dev, mont=False)
+    b = ctx.from_int([y for _ in vals for y in vals], dev, mont=False)
+    got = kernels.mont_mul(ctx, a, b)
+    assert torch.equal(got, kernels.mont_mul_plain(ctx, a, b))
+    rinv = pow(ctx.R, -1, modulus)
+    want = [x * y * rinv % modulus for x in vals for y in vals]
+    assert list(ctx.to_int(got, mont=False)) == want
+    assert torch.equal(kernels.mont_pow(ctx, a, 2), kernels.mont_mul(ctx, a, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modulus", [bn254.Q, bn254.R], ids=["fq", "fr"])
+def test_mont_pow_kernel_matches_plain(modulus):
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    ctx = bigint.mont_ctx(modulus)
+    vals = [0, 1, modulus - 1] + _rand_ints(rng, 61, modulus)
+    a = ctx.from_int(vals, dev)
+    for e in (0, 1, 2, 3, modulus - 2, (1 << 256) - 1, int.from_bytes(rng.bytes(32), "little")):
+        before = kernels.LAUNCHES["mont_pow"]
+        got = kernels.mont_pow(ctx, a, e)
+        assert kernels.LAUNCHES["mont_pow"] == before + 1
+        assert torch.equal(got, kernels.mont_pow_plain(ctx, a, e)), e
+        assert list(ctx.to_int(got)) == [pow(v, e, modulus) for v in vals]
+    before = dict(kernels.LAUNCHES)
+    inv = ctx.to_int(ctx.inv(a))
+    assert kernels.LAUNCHES["mont_pow"] == before["mont_pow"] + 1
+    assert kernels.LAUNCHES["mont_mul"] == before["mont_mul"]
+    assert inv[0] == 0 and all(int(x) * v % modulus == 1 for x, v in zip(inv[1:], vals[1:]))
+
+
+def _g2_inputs(dev, n):
+    """Two batches of G2 Jacobian points: the five degenerate pairings and a
+    few honest ones on real points, then random field elements."""
+    rng = np.random.default_rng(7)
+    ctx = bn254.fq()
+    G2 = (bn254.G2_GEN_X, bn254.G2_GEN_Y)
+    pts = [bn254.h_ec_mul(k, G2, bn254.HOST_FQ2) for k in range(1, 7)]
+    neg1 = (pts[1][0], bn254.HOST_FQ2.neg(pts[1][1]))
+    P = pts + [pts[0], pts[1], None, pts[2], None]  # ..., P+P, P+(-P), inf+P, P+inf, inf+inf
+    Q = pts[::-1] + [pts[0], neg1, pts[3], None, None]
+
+    def coords(points):
+        m = n - len(points)
+        out = []
+        for c in range(2):
+            out.append(tuple(
+                ctx.from_int([p[c][j] if p else 0 for p in points] + _rand_ints(rng, m, bn254.Q),
+                             dev) for j in range(2)))
+        z0 = ctx.from_int([0 if p is None else 1 for p in points] + _rand_ints(rng, m, bn254.Q),
+                          dev)
+        z1 = ctx.from_int([0] * len(points) + _rand_ints(rng, m, bn254.Q), dev)
+        return (*out, (z0, z1))
+
+    return ctx, P, Q, coords(P), coords(Q)
+
+
+def _leaves(point):
+    return [t for coord in point for t in (coord if isinstance(coord, tuple) else (coord,))]
+
+
+@pytest.mark.gpu
+def test_point_add_g2_kernel_matches_plain():
+    dev = _cuda()
+    ctx, P, Q, p, q = _g2_inputs(dev, BATCH // 8)
+    before = kernels.LAUNCHES["point_add_g2"]
+    got = kernels.point_add_g2(ctx, p, q)
+    assert kernels.LAUNCHES["point_add_g2"] == before + 1
+    ref = kernels.point_add_g2_plain(ctx, p, q)
+    for g, r in zip(_leaves(got), _leaves(ref)):
+        assert torch.equal(g, r)
+    F2 = bn254.Fq2Ops()
+    head = bn254.PointJ(*(tuple(t[:, : len(P)].contiguous() for t in c) for c in got))
+    (x0, x1), (y0, y1) = (F2.to_int(c) for c in bn254.to_affine(F2, head))
+    for i, (u, v) in enumerate(zip(P, Q)):
+        want = bn254.h_ec_add(u, v, bn254.HOST_FQ2)
+        have = ((int(x0[i]), int(x1[i])), (int(y0[i]), int(y1[i])))
+        assert have == (want if want is not None else ((0, 0), (0, 0))), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("keep", [0, 1])
+def test_masked_point_add_matches_plain(group, keep):
+    """All lanes passed, none passed, and a mixed mask, for both operands;
+    a passed all-zero operand comes out all zero."""
+    dev = _cuda()
+    n = BATCH // 8
+    if group == "g1":
+        ctx, acc, _, _, _ = _step_inputs(dev, n)
+        p, q = acc, tuple(t.flip(1).contiguous() for t in acc)
+        add, plain, name = kernels.point_add, kernels.point_add_plain, "point_add"
+    else:
+        ctx, _, _, p, q = _g2_inputs(dev, n)
+        add, plain, name = kernels.point_add_g2, kernels.point_add_g2_plain, "point_add_g2"
+    rng = np.random.default_rng(8)
+    mixed = torch.tensor(rng.integers(0, 2, n), dtype=torch.int32, device=dev)
+    mixed[:40] = torch.tensor([1, 0] * 20, dtype=torch.int32, device=dev)
+    for mask in (torch.ones_like(mixed), torch.zeros_like(mixed), mixed * 7):
+        before = kernels.LAUNCHES[name + "_masked"]
+        got = add(ctx, p, q, mask, keep)
+        assert kernels.LAUNCHES[name + "_masked"] == before + 1
+        for g, r in zip(_leaves(got), _leaves(plain(ctx, p, q, mask, keep))):
+            assert torch.equal(g, r)
+    kept = _leaves((p, q)[keep])
+    for g, k in zip(_leaves(add(ctx, p, q, torch.ones_like(mixed), keep)), kept):
+        assert torch.equal(g, k)
+    zero = tuple(torch.zeros_like(t) for t in _leaves(p))
+    zero = zero if group == "g1" else tuple(zip(zero[::2], zero[1::2]))
+    out = add(ctx, *((zero, q) if keep == 0 else (p, zero)), torch.ones_like(mixed), keep)
+    assert all(int(t.abs().sum()) == 0 for t in _leaves(out))
+
+
+@pytest.mark.gpu
+def test_msm_g2_on_the_card_matches_host():
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    n = 70
+    G2 = (bn254.G2_GEN_X, bn254.G2_GEN_Y)
+    pts = [bn254.h_ec_mul_jac_f(int(k), G2, bn254.HOST_FQ2) for k in rng.integers(1, 2**30, n)]
+    sc = _rand_ints(rng, n, bn254.R)
+    sc[0], sc[1] = 0, 1
+    pts[3], sc[3] = pts[4], sc[4]
+    want = None
+    for p, s in zip(pts, sc):
+        want = bn254.h_ec_add(want, bn254.h_ec_mul_jac_f(s, p, bn254.HOST_FQ2), bn254.HOST_FQ2)
+    kernels.reset_launches()
+    assert msm.msm_g2(pts, sc, device=dev) == want
+    assert kernels.LAUNCHES["point_add_g2"] > 0 and kernels.LAUNCHES["mont_pow"] == 1
+    assert kernels.LAUNCHES["point_add_g2_masked"] == kernels.LAUNCHES["point_add_g2"]
+    assert kernels.LAUNCHES["mont_mul"] <= 16
 
 
 @pytest.mark.gpu
