@@ -13,16 +13,21 @@ the entry points a user calls, and checks every stage:
      its path's shape (A and B at 32 windows x 1,326 MSM points, C and D at
      20 windows x 8,192 lanes, the power at 32 window sums, the G2 add at
      32 windows x 896 points; the point adds also under a mask, all set,
-     none set and mixed, for both kept operands), with edge cases checked
-     against host arithmetic.  Three times per kernel: at the path's shape
+     none set and mixed, for both kept operands; kernel E, Poseidon2 over
+     Goldilocks, through its three entry points: the sponge over the
+     attestation trace's 2^21 rows of 216 columns as the AIR prover hands
+     them over, column-major, and over FRI's 2^20 pairs, a Merkle level of
+     2^20 strided digest pairs, 2^18 bare permutations), with edge cases
+     checked against host arithmetic.  Three times per kernel: at the path's shape
      (CUDA events around runs of back-to-back launches, median), the
      host's cost of a launch (host clock around 200 launches, nothing
      synchronised inside), and the device time at a batch where the card's
      work outlasts the host's enqueue, beside the bound worked out from
      the bytes and multiply-adds at that batch.  Checks that kernel C
      equals sign select, kernel D, restart select
-  4. proves the tiny golden configuration on the card and checks its
-     sha256 digests against tests/data/torch_slice_golden.json
+  4. proves the two tiny golden configurations on the card (recursion off
+     and on) and checks their sha256 digests against
+     tests/data/torch_slice_golden.json
   5. the batch proof, `BatchProver(wrap="mimc", recursion=False)`: 7,200
      synthetic blocks (9 chunks of 4,096-row traces), default StarkParams,
      the MiMC Groth16 wrap; checks every chunk proof with verify_chunk and
@@ -36,8 +41,18 @@ the entry points a user calls, and checks every stage:
      4,096-coefficient polynomial, verify True, a wrong value False
   8. the unsafe mixed add through `bn254.point_madd_unsafe` (kernel D) on
      2^17 pairs of distinct points, against the complete add and the host
+  9. the batch proof with recursive aggregation, as a node runs it:
+     `BatchProver(recursion=True, wrap="mimc")` at the production chunk shape
+     (4,096-row chunks, blowup 4, 32 queries, terminal 64, 30 queries of the
+     attestation STARK), 1,600 synthetic blocks (2 chunks): step 3 attests
+     each chunk with the verifier AIR (a 2^18-row trace of 216 columns,
+     extended to 2^21, one Merkle tree over the wide rows) and is timed by
+     stage; checks every chunk proof with verify_chunk, every attestation
+     with recursion.verify_attestation under the pinned shape, the
+     aggregated digest, the final proof with groth16.verify, and that
+     kernel E was launched in steps 2 and 3
 
-Before each of the paths 5-8 the launch counts are set to 0, and read just
+Before each of the paths 5-9 the launch counts are set to 0, and read just
 after: every kernel of that path must have been launched, and Montgomery
 multiplies must stay few (a power is one launch, not one per squaring).
 It prints a JSON line with each kernel's numbers, then, as its last line,
@@ -59,8 +74,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from eigen_zeth_tpu_torch.models import groth16, kzg, stark
-from eigen_zeth_tpu_torch.ops import bn254, kernels, msm
+from eigen_zeth_tpu_torch.models import air, groth16, kzg, recursion, stark
+from eigen_zeth_tpu_torch.ops import bn254, kernels, msm, poseidon
+from eigen_zeth_tpu_torch.ops import goldilocks as gl
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
 
@@ -79,6 +95,12 @@ G2_BATCH = 32 * G2_POINTS
 # enqueue, and the operands must not fit the 50 MB L2 cache
 BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
 KZG_SIZE = 4096  # coefficients of one EIP-4844 blob
+# the recursion tier: 1,600 blocks are 2 chunks of 4,096 rows, one aggregation
+# pair; the attestation trace's LDE is 2^21 rows of 216 columns
+RECURSION_BLOCKS = 1600
+ATT_ROWS, ATT_COLS = 1 << 21, 216
+E_PLAIN_ROWS = 1 << 12  # rows of the wide matrix that the plain version hashes
+E_PERM_BATCH = 1 << 18
 CHAIN_ID = 12345
 
 # The card's peak rates for the bounds (NVIDIA H100 SXM data sheet): device
@@ -110,6 +132,11 @@ KERNEL_WORK = {
     "point_add_masked": (9 * 64 + 4, 11, 5),
     "point_add_g2_masked": (18 * 64 + 4, 11 * 3 + 5 * 2, 0),
 }
+# Kernel E: a Goldilocks product is four 32 x 32 wide multiply-adds (the
+# 128-bit product; the fold is shifts, adds and compares), a permutation 736
+# products: 8 full rounds x 12 lanes x 4, 22 partial rounds x (4 + 12).
+MADS_PER_GL_MUL = 4
+GL_MULS_PER_PERM = 8 * 12 * 4 + 22 * (4 + 12)
 # the wide multiply-add rate that the probe measures in this run (phase_build)
 PROBED_MADS_PER_S = {"rate": INT32_MADS_PER_S}
 AGGREGATOR = "0x" + "11" * 20
@@ -236,28 +263,31 @@ def _check(result) -> None:
         raise AssertionError(f"{type(result).__name__}: {result.error_message}")
 
 
-def drive(prover, blocks):
+def drive(prover, blocks, step_launches: dict | None = None):
     """The four steps, in the order the node's state machine drives them;
-    step 3 aggregates the first and last chunk proofs."""
+    step 3 aggregates the first and last chunk proofs.  Every step is
+    synchronised and timed; `step_launches`, where given, receives each
+    step's own launch counts."""
     times = {}
-    t = time.perf_counter()
-    r1 = prover.gen_batch_chunks("smoke", blocks, CHAIN_ID, "evm")
-    times["gen_batch_chunks"] = time.perf_counter() - t
-    _check(r1)
-    t = time.perf_counter()
-    r2 = prover.gen_chunk_proof("smoke", r1.task_id, r1.chunk_count, CHAIN_ID, "evm", r1.batch_data)
-    torch.cuda.synchronize()
-    times["gen_chunk_proof"] = time.perf_counter() - t
-    _check(r2)
-    t = time.perf_counter()
-    r3 = prover.gen_aggregated_proof("smoke", r2.chunk_proofs[0].proof, r2.chunk_proofs[-1].proof)
-    times["gen_aggregated_proof"] = time.perf_counter() - t
-    _check(r3)
-    t = time.perf_counter()
-    r4 = prover.gen_final_proof("smoke", r3.result_string, "BN128", AGGREGATOR)
-    torch.cuda.synchronize()
-    times["gen_final_proof"] = time.perf_counter() - t
-    _check(r4)
+
+    def run(step, fn):
+        before = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times[step] = time.perf_counter() - t
+        if step_launches is not None:
+            step_launches[step] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        _check(result)
+        return result
+
+    r1 = run("gen_batch_chunks", lambda: prover.gen_batch_chunks("smoke", blocks, CHAIN_ID, "evm"))
+    r2 = run("gen_chunk_proof", lambda: prover.gen_chunk_proof(
+        "smoke", r1.task_id, r1.chunk_count, CHAIN_ID, "evm", r1.batch_data))
+    r3 = run("gen_aggregated_proof", lambda: prover.gen_aggregated_proof(
+        "smoke", r2.chunk_proofs[0].proof, r2.chunk_proofs[-1].proof))
+    r4 = run("gen_final_proof", lambda: prover.gen_final_proof(
+        "smoke", r3.result_string, "BN128", AGGREGATOR))
     return r1, r2, r3, r4, times
 
 
@@ -401,6 +431,7 @@ def phase_kernels(device) -> dict:
     results.update(_phase_step_kernels(device, rng))
     results["mont_pow"] = _phase_pow_kernel(device, rng)
     results.update(_phase_g2_kernel(device, rng))
+    poseidon2 = _phase_poseidon_kernel(device, rng)
     for name, r in results.items():
         log(f"[kernels] {name}: bit-exact vs plain at (16, {r.pop('shape')}); "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -409,7 +440,130 @@ def phase_kernels(device) -> dict:
             f"(16, {r['device_batch']}), bound {r['device_bound_ms']:.4f} ms by "
             f"{r['device_bound_by']} ({r['device_probed_bound_ms']:.4f} ms by "
             f"{r['device_probed_bound_by']} at the probed multiply-add rate)")
+    results["poseidon2"] = poseidon2
     return results
+
+
+def poseidon_bound(rows: int, k_in: int, k_out: int, perms_per_row: int,
+                   mads_per_s: float = INT32_MADS_PER_S) -> dict:
+    """The least time the card could take for one launch of kernel E over
+    `rows` rows: k_in words read and k_out written per row against
+    perms_per_row permutations of 736 field products."""
+    by_bytes = rows * (k_in + k_out) * 8 / HBM_BYTES_PER_S * 1e3
+    by_ops = rows * perms_per_row * GL_MULS_PER_PERM * MADS_PER_GL_MUL / mads_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _random_gl(rng, shape, device) -> torch.Tensor:
+    return gl.from_int(rng.integers(0, gl.P, shape, dtype=np.uint64), device)
+
+
+def _phase_poseidon_kernel(device, rng) -> dict:
+    """Kernel E's three entry points against their plain versions, bit for
+    bit, at the shapes the provers give them, with edge values and row
+    lengths checked against the host sponge too."""
+    P = gl.P
+    err = 0
+
+    def same(what, got, ref) -> None:
+        nonlocal err
+        err = max(err, _compare(f"poseidon2 {what}", (got,), (ref,)))
+
+    def entry(rows, k_in, k_out, perms, kernel, plain, plain_rows, reps):
+        big = poseidon_bound(rows, k_in, k_out, perms)
+        probed = poseidon_bound(rows, k_in, k_out, perms, PROBED_MADS_PER_S["rate"])
+        return {"rows": rows, "ms": cuda_time_ms(kernel, reps), "plain_ms": cuda_time_ms(plain, 1, 1),
+                "plain_rows": plain_rows, **big,
+                "probed_bound_ms": probed["bound_ms"], "probed_bound_by": probed["bound_by"]}
+
+    # perm: 2^18 states, the first rows all 0, all p - 1 and mixed
+    states = _random_gl(rng, (E_PERM_BATCH, 12), device)
+    states[0], states[1], states[2, ::2] = 0, gl.as_i64(P - 1), gl.as_i64(P - 1)
+    same("perm", poseidon.perm(states), poseidon.perm_plain(states))
+    for i in range(3):
+        if [int(v) for v in gl.to_int(poseidon.perm(states[i]))] != poseidon.perm_host(
+                [int(v) for v in gl.to_int(states[i])]):
+            raise AssertionError(f"poseidon2 perm differs from the host permutation (state {i})")
+    entries = {"perm": entry(E_PERM_BATCH, 12, 12, 1, lambda: poseidon.perm(states),
+                             lambda: poseidon.perm_plain(states), E_PERM_BATCH, 5)}
+
+    # hash_rows, edge rows: every length from 0 to 17 and 216, values 0, p - 1, random
+    for k in (*range(18), ATT_COLS):
+        rows = _random_gl(rng, (5, k), device)
+        rows[0], rows[1] = 0, gl.as_i64(P - 1)
+        got = poseidon.hash_elements(rows)
+        same(f"hash_rows (k = {k})", got, poseidon.hash_elements_plain(rows))
+        for i in (0, 1, 4):
+            if [int(v) for v in gl.to_int(got[i])] != poseidon.hash_elements_host(
+                    [int(v) for v in gl.to_int(rows[i])]):
+                raise AssertionError(f"poseidon2 hash_rows differs from the host sponge (k = {k})")
+    if poseidon.hash_elements(gl.zeros((0, 9), device)).shape != (0, 4):
+        raise AssertionError("poseidon2 hash_rows of no rows is not (0, 4)")
+
+    # hash_rows at the attestation's shape: the (216, 2^21) column matrix read
+    # as rows through its strides.  The plain version takes the first and the
+    # last E_PLAIN_ROWS rows (every row in full; hashing all 2^21 rows the plain
+    # way is some 500 million small launches' worth of device memory traffic)
+    cols = _random_gl(rng, (ATT_COLS, ATT_ROWS), device)
+    wide = cols.T
+    got = poseidon.hash_elements(wide)
+    torch.cuda.synchronize()
+    head, tail = slice(0, E_PLAIN_ROWS), slice(ATT_ROWS - E_PLAIN_ROWS, ATT_ROWS)
+    for part in (head, tail):
+        same("hash_rows on wide rows", got[part], poseidon.hash_elements_plain(wide[part]))
+    same("hash_rows on a row-major copy", poseidon.hash_elements(wide[head].contiguous()), got[head])
+    entries["hash_rows"] = entry(
+        ATT_ROWS, ATT_COLS, 4, ATT_COLS // 8, lambda: poseidon.hash_elements(wide),
+        lambda: poseidon.hash_elements_plain(wide[head]), E_PLAIN_ROWS, 3)
+    del cols, wide, got
+
+    # hash_rows on FRI's first layer of the attestation, 2^20 (u, v) pairs;
+    # the chunk STARKs' batched leaves (K, m, 2) take the same route
+    pairs = _random_gl(rng, (ATT_ROWS // 2, 2), device)
+    same("hash_rows on pairs", poseidon.hash_elements(pairs), poseidon.hash_elements_plain(pairs))
+    batched = pairs[: 2 * 16384].reshape(2, 16384, 2)
+    same("hash_rows on batched pairs", poseidon.hash_elements(batched),
+         poseidon.hash_elements(pairs[: 2 * 16384]).reshape(2, 16384, 4))
+    entries["hash_rows_pairs"] = entry(
+        ATT_ROWS // 2, 2, 4, 1, lambda: poseidon.hash_elements(pairs),
+        lambda: poseidon.hash_elements_plain(pairs), ATT_ROWS // 2, 5)
+
+    # hash_two: a Merkle level, the even and odd digests of 2^21 read in place
+    level = _random_gl(rng, (ATT_ROWS, 4), device)
+    level[0], level[1], level[2], level[3] = 0, 0, gl.as_i64(P - 1), gl.as_i64(P - 1)
+    left, right = level[0::2], level[1::2]
+    got = poseidon.hash_two(left, right)
+    same("hash_two", got, poseidon.hash_two_plain(left, right))
+    for i in (0, 1, 2):
+        want = poseidon.hash_two_host([int(v) for v in gl.to_int(left[i])],
+                                      [int(v) for v in gl.to_int(right[i])])
+        if [int(v) for v in gl.to_int(got[i])] != want:
+            raise AssertionError("poseidon2 hash_two differs from the host compression")
+    entries["hash_two"] = entry(ATT_ROWS // 2, 8, 4, 1, lambda: poseidon.hash_two(left, right),
+                                lambda: poseidon.hash_two_plain(left, right), ATT_ROWS // 2, 5)
+    small = level[:2048]
+    host_us = host_us_per_launch(lambda: poseidon.hash_two(small[0::2], small[1::2]))
+
+    for name, e in entries.items():
+        log(f"[kernels] poseidon2 {name}: bit-exact vs plain; {e['rows']} rows: kernel "
+            f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms on {e['plain_rows']} rows, bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['probed_bound_ms']:.4f} ms by "
+            f"{e['probed_bound_by']} at the probed multiply-add rate)")
+    log(f"[kernels] poseidon2: host {host_us:.1f} us per launch (hash_two on 1,024 pairs)")
+    # the kernel's row: the sponge over the attestation's wide rows, where the
+    # recursion path spends its hashing; device_ms is that launch's own time
+    main = entries["hash_rows"]
+    return {
+        "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "plain_rows": main["plain_rows"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "host_us_per_launch": host_us, "device_batch": ATT_ROWS, "device_ms": main["ms"],
+        "device_bound_ms": main["bound_ms"], "device_bound_by": main["bound_by"],
+        "device_probed_bound_ms": main["probed_bound_ms"],
+        "device_probed_bound_by": main["probed_bound_by"],
+        "entries": entries,
+    }
 
 
 def _phase_carry_edges(device) -> None:
@@ -607,28 +761,35 @@ def _sha(s: str) -> str:
 
 
 def phase_golden(device) -> None:
+    """The two tiny configurations of the golden file on the card: recursion
+    off, and the recursion tier (two attestation STARKs in step 3)."""
     golden = json.loads(GOLDEN.read_text())
-    cfg = golden["config"]
-    prover = ps.BatchProver(
-        stark_params=stark.StarkParams(**cfg["stark_params"]),
-        wrap=cfg["wrap"],
-        chunk_trace_rows=cfg["chunk_trace_rows"],
-        groth16_seed=cfg["groth16_seed"],
-        device=device,
-    )
-    t = time.perf_counter()
-    prover.verifying_key  # the deterministic MiMC CRS: host setup, once per process
-    log(f"[golden] Groth16 CRS setup (host): {time.perf_counter() - t:.2f} s")
-    _, r2, r3, r4, _ = drive(prover, cfg["blocks"])
-    got = {
-        "chunk_proofs": [_sha(c.proof) for c in r2.chunk_proofs],
-        "aggregated": _sha(r3.result_string),
-        "final_proof": _sha(r4.final_proof.proof),
-        "public_input": _sha(r4.final_proof.public_input),
-    }
-    if got != golden["sha256"]:
-        raise AssertionError(f"golden mismatch: {got} != {golden['sha256']}")
-    log("[golden] tiny configuration on the card: all sha256 digests match")
+    for name, entry in (("recursion off", golden), ("recursion on", golden["recursion"])):
+        cfg = entry["config"]
+        prover = ps.BatchProver(
+            stark_params=stark.StarkParams(**cfg["stark_params"]),
+            wrap=cfg["wrap"],
+            recursion=cfg["recursion"],
+            chunk_trace_rows=cfg["chunk_trace_rows"],
+            agg_queries=cfg.get("agg_queries", 30),
+            groth16_seed=cfg["groth16_seed"],
+            device=device,
+        )
+        t = time.perf_counter()
+        prover.verifying_key  # the deterministic MiMC CRS: host setup, once per process
+        log(f"[golden] Groth16 CRS setup (host): {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        _, r2, r3, r4, _ = drive(prover, cfg["blocks"])
+        got = {
+            "chunk_proofs": [_sha(c.proof) for c in r2.chunk_proofs],
+            "aggregated": _sha(r3.result_string),
+            "final_proof": _sha(r4.final_proof.proof),
+            "public_input": _sha(r4.final_proof.public_input),
+        }
+        if got != entry["sha256"]:
+            raise AssertionError(f"golden mismatch ({name}): {got} != {entry['sha256']}")
+        log(f"[golden] tiny configuration, {name}, on the card in {time.perf_counter() - t:.2f} s: "
+            "all sha256 digests match")
 
 
 def require_at_most(path: str, launches: dict, name: str, most: int) -> None:
@@ -673,9 +834,10 @@ class timed_calls:
 def phase_slice(device) -> dict:
     prover = ps.BatchProver(wrap="mimc", recursion=False, device=device)
     torch.cuda.reset_peak_memory_stats(device)
+    steps = {}
     kernels.reset_launches()
     with timed_calls() as calls:
-        r1, r2, r3, r4, times = drive(prover, list(range(1, SLICE_BLOCKS + 1)))
+        r1, r2, r3, r4, times = drive(prover, list(range(1, SLICE_BLOCKS + 1)), steps)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
 
@@ -692,7 +854,8 @@ def phase_slice(device) -> dict:
         raise AssertionError("unexpected batch payload size")
     require_launches("batch proof", launches,
                      ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_add_g2",
-                      "point_add_g2_masked"))
+                      "point_add_g2_masked", "poseidon2"))
+    require_launches("batch proof, step 2", steps["gen_chunk_proof"], ("poseidon2",))
     require_at_most("batch proof", launches, "mont_mul", 200)
     if [name for name, _, _ in calls.times].count("msm_g2") != 1:
         raise AssertionError(f"expected one G2 MSM in the batch proof, got {calls.times}")
@@ -709,6 +872,107 @@ def phase_slice(device) -> dict:
     log(f"[slice] max_memory_allocated: {peak / 2**20:.1f} MiB")
     log(f"[slice] launches: {launches}")
     log("[slice] 9/9 chunk proofs pass verify_chunk; the final proof passes groth16.verify")
+    device_profile("slice step 2", lambda: prover.gen_chunk_proof(
+        "smoke", r1.task_id, r1.chunk_count, CHAIN_ID, "evm", r1.batch_data))
+    return launches
+
+
+def phase_recursion(device) -> dict:
+    """The batch proof as a node runs it: recursive aggregation on, the MiMC
+    wrap, at the production chunk shape, through the four entry points."""
+    prover = ps.BatchProver(recursion=True, wrap="mimc", device=device)
+    sp = prover.stark_params
+    shape = (prover.chunk_trace_rows, sp.blowup, sp.num_queries, sp.terminal_size,
+             prover.agg_queries)
+    if shape != (4096, 4, 32, 64, 30):
+        raise AssertionError(f"not the production chunk shape: {shape}")
+
+    # step 3 by stage: every stage of every attestation, synchronised
+    stages, last = [], [0.0]
+
+    def on_stage(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append((name, now - last[0], torch.cuda.max_memory_allocated(device)))
+        last[0] = now
+
+    attest_chunk = recursion.attest_chunk
+
+    def attest_from_now(*args, **kwargs):
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()  # the trace build starts here
+        return attest_chunk(*args, **kwargs)
+
+    steps = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    air.STAGE_HOOK, recursion.attest_chunk = on_stage, attest_from_now
+    try:
+        with timed_calls() as calls:
+            r1, r2, r3, r4, times = drive(prover, list(range(1, RECURSION_BLOCKS + 1)), steps)
+    finally:
+        air.STAGE_HOOK, recursion.attest_chunk = None, attest_chunk
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    if r1.chunk_count != 2 or len(r2.chunk_proofs) != 2:
+        raise AssertionError(f"expected 2 chunks, got {r1.chunk_count}")
+    chunks = [json.loads(c.proof)["stark"] for c in r2.chunk_proofs]
+    for i, proof in enumerate(chunks):
+        if proof["n"] != 4096 or len(proof["fri"]["roots"]) != 8:
+            raise AssertionError(f"chunk proof {i} has not the production shape")
+        if not stark.verify_chunk(proof, sp):
+            raise AssertionError(f"chunk proof {i} does not verify")
+    agg = json.loads(r3.result_string)
+    if [k["type"] for k in agg["children"]] != ["chunk-attested"] * 2:
+        raise AssertionError("step 3 did not replace the chunk children by attestations")
+    t = time.perf_counter()
+    digests = []
+    for i, att in enumerate(agg["children"]):
+        p = att["air_proof"]
+        if (p["n"], p["n_cols"], p["ext_blowup"], p["num_queries"]) != (1 << 18, ATT_COLS, 8, 30):
+            raise AssertionError(f"attestation {i} has not the production shape")
+        # raises ValueError where the verifier AIR's proof is rejected
+        digest = recursion.verify_attestation(att, expected_queries=32, expected_rows=4096,
+                                              expected_terminal=64)
+        if digest != ps.chunk_digest(chunks[i]):
+            raise AssertionError(f"attestation {i} does not bind its chunk's digest")
+        digests.append(digest)
+    t_verify = time.perf_counter() - t
+    if [str(x) for x in poseidon.hash_two_host(*digests)] != agg["digest"]:
+        raise AssertionError("the aggregated digest is not the hash of its children's")
+    pub = [int(x) for x in json.loads(r4.final_proof.public_input)]
+    if not groth16.verify(prover.verifying_key, json.loads(r4.final_proof.proof), pub):
+        raise AssertionError("the final Groth16 proof does not verify")
+    for step in ("gen_chunk_proof", "gen_aggregated_proof"):
+        require_launches(f"recursion, {step}", steps[step], ("poseidon2",))
+    require_launches("recursion", launches,
+                     ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_add_g2",
+                      "point_add_g2_masked", "poseidon2"))
+
+    log(f"[recursion] {RECURSION_BLOCKS} blocks, {r1.chunk_count} chunks of 4096 rows "
+        f"(blowup {sp.blowup}, {sp.num_queries} queries, terminal {sp.terminal_size}), "
+        f"{prover.agg_queries} queries of the attestation STARK, mimc wrap")
+    for step, s in times.items():
+        log(f"[recursion] {step}: {s:.3f} s, poseidon2 launches {steps[step]['poseidon2']}")
+    k = 0
+    for name, s, mem in stages:
+        k += name == "trace"
+        log(f"[recursion] gen_aggregated_proof, attestation {k}: {name}: {s:.3f} s "
+            f"(peak so far {mem / 2**20:.0f} MiB)")
+    for name, n_points, s in calls.times:
+        what = f"{name} of {n_points} points" if n_points else f"groth16.{name}, the whole call"
+        log(f"[recursion] gen_final_proof: {what}: {s:.3f} s")
+    log(f"[recursion] total of the four steps: {sum(times.values()):.3f} s")
+    log(f"[recursion] max_memory_allocated: {peak / 2**20:.1f} MiB")
+    log(f"[recursion] launches: {launches}")
+    log(f"[recursion] 2/2 chunk proofs pass verify_chunk; 2/2 attestations (2^18 rows x "
+        f"{ATT_COLS} columns, LDE 2^21) pass verify_attestation under the pinned shape "
+        f"({t_verify:.3f} s on the host); the aggregated digest is their hash; the final "
+        "proof passes groth16.verify")
+    # where one attestation's time goes on the card (launch counts were read above)
+    device_profile("recursion attestation", lambda: recursion.attest_chunk(
+        chunks[0], num_queries_agg=prover.agg_queries, device=device))
     return launches
 
 
@@ -899,12 +1163,15 @@ def main() -> int:
     paths = [phase_slice(device)]
     points = test_points(device)
     paths += [phase_msm(device, points), phase_kzg(device), phase_madd(device, points)]
-    launches = {name: sum(path[name] for path in paths) for name in KERNEL_WORK}
-    require_launches("main", launches, KERNEL_WORK)
+    del points
+    paths.append(phase_recursion(device))
+    names = [*KERNEL_WORK, "poseidon2"]
+    launches = {name: sum(path[name] for path in paths) for name in names}
+    require_launches("main", launches, names)
     rows = [
         {"name": name, **kernels.KERNELS[name],
          "launches": launches[name], **timing[name]}
-        for name in KERNEL_WORK
+        for name in names
     ]
     log(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

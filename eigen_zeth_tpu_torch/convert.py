@@ -7,6 +7,11 @@ python ints — so this module imports neither package's JAX code:
   (16, B) uint32 limb planes    <-> (16, B) int32 tensor (same 16-bit limbs)
   a ProvingKey / VerifyingKey / R1CS of the JAX package -> the port's
   the fields of an Srs / G1Table of the JAX package    -> the port's
+
+The recursion tier (models/air.py, models/recursion.py,
+`BatchProver(recursion=True)`) carries no parameters across: its inputs are
+the chunk-proof dicts, plain JSON that both packages read as it is, and its
+AIR is built from the same constants on both sides.  Nothing here serves it.
 """
 
 from __future__ import annotations

@@ -78,8 +78,16 @@ class MerkleTree:
 
 
 def commit_leaves(leaves: torch.Tensor) -> List[torch.Tensor]:
-    """Hash (..., N, k) rows to digests, then build the levels."""
+    """Hash (..., N, k) rows to digests, then build the levels.  Any row
+    width k; the rows are read through their strides, so the transpose of a
+    (k, N) column matrix is hashed where it lies."""
     return commit_digests(poseidon.hash_elements(leaves))
+
+
+def commit_tree(leaves: torch.Tensor) -> MerkleTree:
+    """One tree over (N, k) rows, as the AIR prover commits its wide trace."""
+    assert leaves.dim() == 2
+    return MerkleTree(commit_leaves(leaves))
 
 
 def verify_path(root: list[int], index: int, leaf_values: list[int], path: list[list[int]]) -> bool:

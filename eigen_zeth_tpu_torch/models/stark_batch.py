@@ -16,6 +16,8 @@ byte-identical.
 The JAX module's `commit_leaves_batched` and `_fold_phase` have no
 counterparts of their own: `merkle.commit_leaves` and `fri.fold_layer`
 take the leading chunk axis (a (K, 1) β folds each chunk with its own).
+The batched FRI prover itself is `fri.fri_prove_batched`; the AIR prover
+takes its K = 1 case.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from ..ops import goldilocks as gl
 from ..ops import ntt as nttm
 from . import fri, merkle
-from .fri import FriProverOutput
+from .fri import path_strs
 from .poseidon_tags import chunk_gamma
 from .stark import StarkParams
 from .transcript import Transcript
@@ -70,81 +72,6 @@ def _composition_phase(A_lde, D_lde, alphas, iv, out, *, n: int, blowup: int, ga
         gl.add(gl.mul(q1, alphas[:, 0:1]), gl.mul(q2, alphas[:, 1:2])),
         gl.mul(q3, alphas[:, 2:3]),
     )
-
-
-def _path_strs(digs: np.ndarray) -> list:
-    return [[str(x) for x in d] for d in digs]
-
-
-def fri_prove_batched(evals: torch.Tensor, shift: int, transcripts: List[Transcript],
-                      params: fri.FriParams) -> List[FriProverOutput]:
-    """K simultaneous arity-2 FRI proofs over (K, m) evaluations."""
-    K, m = evals.shape
-    assert m & (m - 1) == 0
-    assert all(a == 2 for a in params.layer_schedule(m)), "arity-2 FRI only"
-    dev = evals.device
-    layers = []  # (levels, u, v) per committed layer
-    roots_all = [[] for _ in range(K)]
-    cur = evals
-    cur_shift = shift
-    while cur.shape[-1] > params.terminal_size:
-        half = cur.shape[-1] // 2
-        u, v = cur[:, :half], cur[:, half:]
-        levels = merkle.commit_leaves(torch.stack([u, v], dim=2))
-        roots = merkle.roots(levels)
-        betas = []
-        for k in range(K):
-            root = [int(x) for x in roots[k]]
-            transcripts[k].absorb("fri-root", root)
-            roots_all[k].append(root)
-            betas.append(transcripts[k].challenge("fri-beta"))
-        layers.append((levels, u, v))
-        cur = fri.fold_layer(cur, gl.from_int(betas, dev)[:, None], cur_shift)
-        cur_shift = gl.h_mul(cur_shift, cur_shift)
-
-    tsize = cur.shape[-1]
-    coeffs_shifted = gl.to_int(nttm.intt(cur))
-    s_inv = gl.h_inv(cur_shift)
-    keep = tsize // params.blowup
-    finals, indices = [], []
-    for k in range(K):
-        final_coeffs, si = [], 1
-        for c in coeffs_shifted[k]:
-            final_coeffs.append(gl.h_mul(int(c), si))
-            si = gl.h_mul(si, s_inv)
-        assert all(c == 0 for c in final_coeffs[keep:]), "terminal degree too high"
-        final_coeffs = final_coeffs[:keep]
-        transcripts[k].absorb("fri-final", final_coeffs)
-        finals.append(final_coeffs)
-        indices.append(transcripts[k].challenge_indices("fri-query", params.num_queries, m // 2))
-
-    # openings: per layer one gather + transfer of values and of paths
-    js = torch.as_tensor(indices, dtype=torch.int64, device=dev).reshape(K, -1)
-    opened = []
-    for levels, u, v in layers:
-        jj = js % u.shape[-1]
-        vals = gl.to_int(torch.stack([u.gather(1, jj), v.gather(1, jj)], dim=-1))
-        opened.append((vals, merkle.open_batched(levels, jj)))
-        js = jj
-    outs = []
-    for k in range(K):
-        queries = []
-        for q, idx in enumerate(indices[k]):
-            layer_openings = [
-                {"u": str(int(vals[k, q, 0])), "v": str(int(vals[k, q, 1])),
-                 "path": _path_strs(paths[k, q])}
-                for vals, paths in opened
-            ]
-            queries.append({"index": idx, "layers": layer_openings})
-        proof = {
-            "domain_size": m,
-            "shift": str(shift),
-            "roots": [[str(x) for x in r] for r in roots_all[k]],
-            "final_coeffs": [str(c) for c in finals[k]],
-            "queries": queries,
-        }
-        outs.append(FriProverOutput(proof=proof, layer0_indices=indices[k]))
-    return outs
 
 
 def prove_chunks(datas: List[List[int]], ivs: List[int], params: StarkParams | None = None,
@@ -189,7 +116,7 @@ def prove_chunks(datas: List[List[int]], ivs: List[int], params: StarkParams | N
         A_lde, D_lde, gl.from_int(alphas, device), iv_t, out_t,
         n=n, blowup=params.blowup, gamma=gamma, shift=params.shift,
     )
-    fri_outs = fri_prove_batched(comp, params.shift, transcripts, params.fri_params())
+    fri_outs = fri.fri_prove_batched(comp, params.shift, transcripts, params.fri_params())
 
     # trace openings: rows at x, w·x, -x, -w·x for every layer-0 query
     b = params.blowup
@@ -209,7 +136,7 @@ def prove_chunks(datas: List[List[int]], ivs: List[int], params: StarkParams | N
                 {
                     "index": all_idx[k][i],
                     "row": [str(int(x)) for x in row_vals[k, i]],
-                    "path": _path_strs(paths[k, i]),
+                    "path": path_strs(paths[k, i]),
                 }
                 for i in range(4 * q, 4 * q + 4)
             ])

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels of the port: build, wrappers, plain versions.
 
-Four kernels replace the four Pallas kernels of the JAX package, and two
-more entry points of A's and B's sources take over work that the JAX
-package does with many launches of those kernels:
+Four kernels replace the four Pallas kernels of the JAX package, two more
+entry points of A's and B's sources take over work that the JAX package
+does with many launches of those kernels, and a fifth kernel hashes for the
+STARK side, which the JAX package leaves to XLA and to its native host
+hasher:
 
   A mont_mul         csrc/mont_mul.cu    eigen_zeth_tpu/ops/pallas/mont_pl.py:30
     mont_pow         csrc/mont_mul.cu    eigen_zeth_tpu/ops/bigint.py:342
@@ -10,13 +12,18 @@ package does with many launches of those kernels:
     point_add_g2     csrc/point_add.cu   eigen_zeth_tpu/ops/bn254.py:206
   C point_scan_step  csrc/scan_step.cu   eigen_zeth_tpu/ops/pallas/ec_pl.py:242
   D point_madd       csrc/point_madd.cu  eigen_zeth_tpu/ops/pallas/ec_pl.py:186
+  E poseidon2        csrc/poseidon2_gl.cu  eigen_zeth_tpu/ops/poseidon.py:431
 
 A and B carry the batch proof's MSMs; C is the serial step of the fast G1
 MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
 add behind bn254.point_madd_unsafe.  `mont_pow` is a whole power (Fermat
 inversion) in one launch; `point_add_g2` is B over Fq2; both point adds take
 an optional mask that passes one operand through (the select of the MSM
-scans).  Each source notes what bounds it on the H100 and what its design
+scans).  E is Poseidon2 over Goldilocks, one thread per state, with three
+entry points (`poseidon2_perm`, `poseidon2_hash_rows`, `poseidon2_hash_two`)
+that share one launch count; ops/poseidon.py sends CUDA tensors to them and
+keeps the plain versions, and every Merkle commit of the chunk STARKs and of
+the AIR prover runs through them.  Each source notes what bounds it on the H100 and what its design
 does about it.  The sources are compiled with nvcc for sm_90a (one nvcc per
 source, all started together) and linked into one shared library with a
 plain C interface, at first use, into `_build/<hash of the sources>/` next
@@ -26,13 +33,15 @@ card's integer multiply-add rate and is no kernel of any path.
 Each wrapper takes its plain PyTorch version only for a CPU tensor.  For a
 CUDA tensor it launches the kernel or raises; nothing falls back.  Each
 launch adds one to `LAUNCHES[name]`; a point add's launch with a mask also
-adds one to `LAUNCHES[name + "_masked"]`.
+adds one to `LAUNCHES[name + "_masked"]`; each of E's entry points adds one
+to `LAUNCHES["poseidon2"]`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import threading
@@ -78,6 +87,11 @@ KERNELS = {
         "route": "cuda",
         "source": "eigen_zeth_tpu_torch/csrc/point_add.cu",
         "replaces": "eigen_zeth_tpu/ops/bn254.py:206",
+    },
+    "poseidon2": {
+        "route": "cuda",
+        "source": "eigen_zeth_tpu_torch/csrc/poseidon2_gl.cu",
+        "replaces": "eigen_zeth_tpu/ops/poseidon.py:431",
     },
 }
 # the point adds under a mask (the scans' select): the same entries, counted
@@ -161,6 +175,10 @@ SIGNATURES = {
     "point_add_g2": [_VP, _LL, _VP, _UI, _VP, _CI, _VP],
     "point_scan_step": [_VP] * 11 + [_LL, _VP, _UI, _VP, _VP],
     "point_madd": [_VP] * 9 + [_LL, _VP, _UI, _VP],
+    # kernel E's entries: tensors, sizes and strides in words, the constants, the stream
+    "poseidon2_perm": [_VP, _VP, _LL, _VP, _VP],
+    "poseidon2_hash_rows": [_VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP],
+    "poseidon2_hash_two": [_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP],
 }
 
 
@@ -485,6 +503,105 @@ def point_madd_plain(ctx, p, q_aff):
     F = bn254.FqOps(ctx, plain=True)
     out, collide = bn254.point_madd_unsafe(F, bn254.PointJ(*p), *q_aff)
     return tuple(out) + (collide.to(torch.int32),)
+
+
+# ---------------------------------------------------------------------------
+# kernel E: Poseidon2 over Goldilocks (the plain versions are in ops/poseidon.py)
+
+_poseidon_consts = None  # (host word array kept alive, its address)
+
+
+def _poseidon2_consts():
+    """The instance's constants as csrc/poseidon2_gl.cu's `Consts`: the 8 full
+    rounds' additive constants, lane 0's of the 22 partial rounds, the internal
+    diagonal; 130 host words, made once."""
+    global _poseidon_consts
+    if _poseidon_consts is None:
+        from . import poseidon
+
+        rc = poseidon.round_constants()
+        full = [r for r in range(poseidon.N_ROUNDS) if poseidon._is_full_round(r)]
+        words = [v for r in full for v in rc[r]]
+        words += [rc[r][0] for r in range(poseidon.N_ROUNDS) if r not in full]
+        words += poseidon.internal_diag()
+        arr = (ctypes.c_uint64 * len(words))(*words)
+        _poseidon_consts = (arr, ctypes.cast(arr, ctypes.c_void_p))
+    return _poseidon_consts[1]
+
+
+def _launch_poseidon2(entry: str, device, *args) -> None:
+    """Launch `ezt_poseidon2_<entry>` on the current stream of `device` and
+    count it under "poseidon2"; raise if the card refuses the launch."""
+    if not _fns:
+        _load()
+    fn = _fns["poseidon2_" + entry]
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, _poseidon2_consts(), torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _poseidon2_consts(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"poseidon2_{entry}: kernel launch failed with cudaError {rc}")
+    LAUNCHES["poseidon2"] += 1
+
+
+def _check_words(name: str, t: torch.Tensor, width: int | None = None) -> None:
+    """A CUDA int64 tensor of (..., width) field words, or raise."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype is not torch.int64:
+        raise TypeError(f"{name}: expected int64 field words, got {t.dtype}")
+    if t.dim() < 1 or (width is not None and t.shape[-1] != width):
+        raise ValueError(f"{name}: expected (..., {width or 'k'}) words, got {tuple(t.shape)}")
+
+
+def _digest_rows(t: torch.Tensor) -> torch.Tensor:
+    """(..., 4) digests as (n, 4) rows of contiguous words: a view where the
+    strides allow one (every other row of a Merkle level), else a copy."""
+    rows = t.reshape(-1, 4)
+    return rows if rows.stride(1) == 1 else rows.contiguous()
+
+
+def poseidon2_perm(state: torch.Tensor) -> torch.Tensor:
+    """Kernel E on (..., 12) canonical states of a CUDA int64 tensor."""
+    _check_words("poseidon2_perm", state, 12)
+    rows = state.reshape(-1, 12).contiguous()
+    out = torch.empty_like(rows)
+    if rows.shape[0]:
+        _launch_poseidon2("perm", rows.device, rows.data_ptr(), out.data_ptr(), rows.shape[0])
+    return out.reshape(state.shape)
+
+
+def poseidon2_hash_rows(elements: torch.Tensor) -> torch.Tensor:
+    """Kernel E's sponge over the last axis: (..., k) -> (..., 4) digests on
+    a CUDA int64 tensor of canonical words, any k >= 0.  A 2-D input is read
+    through its strides, so a transposed (column-major) matrix is not copied."""
+    _check_words("poseidon2_hash_rows", elements)
+    k = elements.shape[-1]
+    rows = elements if elements.dim() == 2 else elements.reshape(math.prod(elements.shape[:-1]), k)
+    out = torch.empty((rows.shape[0], 4), dtype=torch.int64, device=rows.device)
+    if rows.shape[0]:
+        _launch_poseidon2("hash_rows", rows.device, rows.data_ptr(), out.data_ptr(),
+                          rows.shape[0], k, rows.stride(0), rows.stride(1))
+    return out.reshape(elements.shape[:-1] + (4,))
+
+
+def poseidon2_hash_two(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Kernel E's 2-to-1 compression: (..., 4) x (..., 4) -> (..., 4) on CUDA
+    int64 tensors of canonical words.  Strided digests (every other row of a
+    Merkle level) are read where they lie."""
+    _check_words("poseidon2_hash_two", left, 4)
+    _check_words("poseidon2_hash_two", right, 4)
+    if left.shape != right.shape or left.device != right.device:
+        raise ValueError("poseidon2_hash_two: operands must share shape and device, got "
+                         f"{tuple(left.shape)} on {left.device} and {tuple(right.shape)} "
+                         f"on {right.device}")
+    lrows, rrows = _digest_rows(left), _digest_rows(right)
+    out = torch.empty((lrows.shape[0], 4), dtype=torch.int64, device=lrows.device)
+    if lrows.shape[0]:
+        _launch_poseidon2("hash_two", lrows.device, lrows.data_ptr(), lrows.stride(0),
+                          rrows.data_ptr(), rrows.stride(0), out.data_ptr(), lrows.shape[0])
+    return out.reshape(left.shape)
 
 
 # ---------------------------------------------------------------------------

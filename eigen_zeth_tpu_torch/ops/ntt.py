@@ -7,6 +7,11 @@ schedule gives the same bits.  This one is the plain iterative radix-2 DIT:
 one bit-reversal gather, then log2(n) vectorized butterfly stages along the
 last axis.  Twiddles come from the host (numpy) once per (n, direction,
 device).
+
+`lde_columns` is the AIR prover's transform: INTT and coset LDE of a wide
+(columns, n) matrix a few columns at a time, because a butterfly stage and
+the field product inside it hold about ten temporaries of their operand's
+size, and the extended matrix of a production attestation alone is 3.6 GB.
 """
 
 from __future__ import annotations
@@ -90,3 +95,23 @@ def lde(coeffs: torch.Tensor, blowup: int, shift: int = gl.MULTIPLICATIVE_GENERA
     n = coeffs.shape[-1]
     padded = torch.nn.functional.pad(coset_shift(coeffs, shift), (0, n * (blowup - 1)))
     return ntt(padded)
+
+
+# elements per block of `lde_columns`' output: 2^25 words are 256 MB, so a
+# stage's temporaries stay within a few GB whatever the matrix's width
+LDE_BLOCK_WORDS = 1 << 25
+
+
+def lde_columns(cols: torch.Tensor, blowup: int, shift: int = gl.MULTIPLICATIVE_GENERATOR,
+                block_cols: int | None = None) -> torch.Tensor:
+    """lde(intt(cols), blowup, shift) of a (C, n) matrix of column
+    evaluations, `block_cols` columns at a time, into one (C, n·blowup)
+    tensor.  The same values as the unblocked call."""
+    C, n = cols.shape
+    m = n * blowup
+    if block_cols is None:
+        block_cols = max(1, LDE_BLOCK_WORDS // m)
+    out = torch.empty((C, m), dtype=cols.dtype, device=cols.device)
+    for s in range(0, C, block_cols):
+        out[s : s + block_cols] = lde(intt(cols[s : s + block_cols]), blowup, shift)
+    return out

@@ -8,6 +8,13 @@ SHA-256 tags, M_E = circ(2·M4, M4, M4), M_I = 1 + diag(mu)), with
   * the device permutation as a `torch.nn.Module` whose buffers hold the
     round constants and the internal diagonal.  It works lane-major on a
     (12, N) state, so every field op runs over the whole batch at once.
+
+`perm`, `hash_elements` and `hash_two` send a CUDA tensor to the hand-written
+kernel (ops/kernels.py, csrc/poseidon2_gl.cu: the whole permutation, or the
+whole sponge of a row, in one thread's registers) and a CPU tensor to the
+PyTorch code here, the kernel's plain version (`perm_plain`,
+`hash_elements_plain`, `hash_two_plain`).  Nothing falls back: a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -73,7 +80,8 @@ def internal_diag() -> list[int]:
 
 @functools.lru_cache(maxsize=1)
 def external_matrix() -> list[list[int]]:
-    """The dense 12x12 external matrix circ(2*M4, M4, M4)."""
+    """The dense 12x12 external matrix circ(2*M4, M4, M4) (for the verifier
+    AIR's matvec constraint; the permutations use the addition chain)."""
     m = [[0] * WIDTH for _ in range(WIDTH)]
     for bi in range(3):
         for bj in range(3):
@@ -82,6 +90,13 @@ def external_matrix() -> list[list[int]]:
                 for j in range(4):
                     m[4 * bi + i][4 * bj + j] = mult * M4[i][j]
     return m
+
+
+@functools.lru_cache(maxsize=1)
+def internal_matrix() -> list[list[int]]:
+    """Dense M_I = allones + diag(mu) (for the verifier AIR's matvec constraint)."""
+    mu = internal_diag()
+    return [[(1 + mu[i]) % gl.P if i == j else 1 for j in range(WIDTH)] for i in range(WIDTH)]
 
 
 # ---------------------------------------------------------------------------
@@ -226,14 +241,33 @@ def _module(device) -> Poseidon2:
     return _MODULES[key]
 
 
+def perm_plain(state: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's `perm` entry."""
+    return _module(state.device)(state)
+
+
 def perm(state: torch.Tensor) -> torch.Tensor:
     """Poseidon2 permutation of (..., 12) int64 states on their device."""
-    return _module(state.device)(state)
+    if state.is_cuda:
+        from . import kernels
+
+        return kernels.poseidon2_perm(state)
+    return perm_plain(state)
 
 
 def hash_elements(elements: torch.Tensor) -> torch.Tensor:
     """Device sponge over the last axis: (..., k) -> (..., 4) digests,
     row-identical to hash_elements_host."""
+    if elements.is_cuda:
+        from . import kernels
+
+        return kernels.poseidon2_hash_rows(elements)
+    return hash_elements_plain(elements)
+
+
+def hash_elements_plain(elements: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's `hash_rows` entry: one
+    permutation of the whole batch per block of 8 elements."""
     k = elements.shape[-1]
     batch = elements.shape[:-1]
     state = gl.zeros(batch + (WIDTH,), elements.device)
@@ -242,11 +276,20 @@ def hash_elements(elements: torch.Tensor) -> torch.Tensor:
         block = elements[..., i * RATE : (i + 1) * RATE]
         w = block.shape[-1]
         state = torch.cat([gl.add(state[..., :w], block), state[..., w:]], dim=-1)
-        state = perm(state)
+        state = perm_plain(state)
     return state[..., :DIGEST]
 
 
 def hash_two(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Device 2-to-1 compression: (..., 4) x (..., 4) -> (..., 4)."""
+    if left.is_cuda or right.is_cuda:
+        from . import kernels
+
+        return kernels.poseidon2_hash_two(left, right)
+    return hash_two_plain(left, right)
+
+
+def hash_two_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's `hash_two` entry."""
     pad = gl.zeros(left.shape[:-1] + (WIDTH - 2 * DIGEST,), left.device)
-    return perm(torch.cat([left, right, pad], dim=-1))[..., :DIGEST]
+    return perm_plain(torch.cat([left, right, pad], dim=-1))[..., :DIGEST]

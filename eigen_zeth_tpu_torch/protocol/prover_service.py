@@ -5,14 +5,22 @@ The four ProverService steps, as the eigen-zeth node drives them:
   gen_batch_chunks      execution payload -> chunk decomposition
   gen_chunk_proof       one STARK per chunk, all chunks batched on the
                         device (models/stark_batch.py)
-  gen_aggregated_proof  host `verify_chunk` of both children and a Poseidon
-                        digest of their commitments
-  gen_final_proof       Groth16/BN128 wrap of the digest (+ aggregator
+  gen_aggregated_proof  with recursion on (the default where the chunk
+                        shape allows it), every chunk child is replaced by a
+                        verifier-AIR attestation STARK proved on the device
+                        (models/recursion.py), and the children's digests
+                        are chained; with recursion off, host `verify_chunk`
+                        of both children and the digest chain
+  gen_final_proof       validates the aggregated proof (attestations by the
+                        host AIR verifier, with the protocol's query count,
+                        trace size and terminal pinned), then the
+                        Groth16/BN128 wrap of the digest (+ aggregator
                         address); the MSMs run on the device
 
-This slice covers `recursion=False` with the "mimc" and "linear" wraps.
-Recursion, the in-circuit STARK wrap and `ChainExecutor` are still to be
-ported (ROADMAP.md, Queue 1); asking for them raises NotImplementedError.
+The "mimc" and "linear" wraps are ported.  The in-circuit STARK wrap
+(`wrap="stark"`, the Poseidon2-Fr side) and `ChainExecutor` are still to be
+ported (ROADMAP.md, Queue 1, L4b); asking for them raises
+NotImplementedError.
 
 Failures the protocol expects (unsupported curve, an invalid child proof,
 no blocks) come back as COMPLETED_ERROR results.  Anything else — a kernel
@@ -30,7 +38,7 @@ from typing import List, Optional
 
 import torch
 
-from ..models import groth16, stark, stark_batch
+from ..models import groth16, recursion, stark, stark_batch
 from ..ops import keccak, poseidon
 from .messages import (
     ChunkProof,
@@ -46,7 +54,7 @@ from .messages import (
 CHUNK_FIELD_ELEMS = 4094  # data elements per chunk (< one trace of 4096)
 CHUNK_TRACE_ROWS = 4096
 
-_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1 (recursion, the STARK wrap)"
+_NOT_PORTED = "not ported yet, the next slice of the port: see ROADMAP.md, Queue 1, L4b"
 
 # The canned reference proof that DEBUG_PROOF=TRUE stamps on every batch
 # (the same values as eigen_zeth_tpu/protocol/vectors.py).
@@ -131,6 +139,11 @@ def _wrap_crs(wrap: str, seed: str):
 class BatchProver:
     """The in-process prover engine on an explicit torch device.
 
+    recursion: None turns recursive aggregation on whenever the chunk
+    parameters fit the verifier AIR (blowup 4, a power-of-two query count,
+    at least 8 trace rows, arity-2 FRI), as the JAX class does; it then
+    fixes the chunk shape (4,096-row traces, 32 queries, terminal 64 unless
+    given).  agg_queries: the query count of the attestation STARK itself.
     crs: an optional (r1cs, pk, vk) for the wrap circuit (e.g. converted
     from the JAX package's setup); by default setup runs once per process."""
 
@@ -139,22 +152,47 @@ class BatchProver:
         executor=None,
         stark_params: Optional[stark.StarkParams] = None,
         groth16_seed: str = "ezt-groth16-dev",
-        recursion: bool = False,
+        recursion: Optional[bool] = None,
         chunk_trace_rows: Optional[int] = None,
+        agg_queries: int = 30,
         wrap: str = "mimc",
         crs=None,
         *,
         device: torch.device,
     ):
-        if recursion:
-            raise NotImplementedError(f"recursive aggregation is {_NOT_PORTED}")
         if wrap not in ("mimc", "linear"):
             raise NotImplementedError(f"wrap={wrap!r} is {_NOT_PORTED}")
         self.executor = executor or SyntheticExecutor()
-        self.stark_params = stark_params or stark.StarkParams()
-        self.chunk_trace_rows = chunk_trace_rows
+        if recursion is None:
+            n_rows = chunk_trace_rows or CHUNK_TRACE_ROWS
+            nq = stark_params.num_queries if stark_params else 32
+            recursion = stark_params is None or (
+                stark_params.blowup == 4
+                and n_rows >= 8
+                and nq & (nq - 1) == 0
+                and stark_params.fri_arity == 2
+            )
+        self.recursion = recursion
+        self.agg_queries = agg_queries
+        if recursion:
+            # a uniform chunk shape, so that the verifier AIR is fixed per
+            # (trace size, terminal, queries)
+            self.chunk_trace_rows = chunk_trace_rows or CHUNK_TRACE_ROWS
+            self.stark_params = stark_params or stark.StarkParams(
+                blowup=4, num_queries=32, terminal_size=64
+            )
+            nq = self.stark_params.num_queries
+            assert nq & (nq - 1) == 0, "recursion requires a power-of-two chunk query count"
+            assert self.stark_params.fri_arity == 2, (
+                "the verifier AIR arithmetizes arity-2 FRI only"
+            )
+        else:
+            self.chunk_trace_rows = chunk_trace_rows
+            self.stark_params = stark_params or stark.StarkParams()
         self.chunk_elems = (
-            min(CHUNK_FIELD_ELEMS, chunk_trace_rows - 1) if chunk_trace_rows else CHUNK_FIELD_ELEMS
+            min(CHUNK_FIELD_ELEMS, self.chunk_trace_rows - 1)
+            if self.chunk_trace_rows
+            else CHUNK_FIELD_ELEMS
         )
         self.wrap = wrap
         self.device = torch.device(device)
@@ -224,9 +262,34 @@ class BatchProver:
 
     def gen_aggregated_proof(self, batch_id: str, recursive_proof_1: str,
                              recursive_proof_2: str) -> GenAggregatedProofResult:
-        """Aggregate two proofs: host-verify each child, chain the digests."""
-        kids = [json.loads(raw) for raw in (recursive_proof_1, recursive_proof_2)]
-        digests = [self._validate(kid) for kid in kids]
+        """Aggregate two proofs and chain their digests.
+
+        With recursion on, a chunk child is replaced by its attestation: an
+        attestation of an invalid chunk proof cannot be built (the
+        transcribed trace violates the verifier AIR and the prover's degree
+        check fires), so this step is also the aggregator's validity check,
+        and nobody downstream verifies the chunk proof again.  Any other
+        child, and every child with recursion off, is verified on the host."""
+        kids, digests = [], []
+        for raw in (recursive_proof_1, recursive_proof_2):
+            node = json.loads(raw)
+            if self.recursion and node.get("type") == "chunk":
+                try:
+                    node = recursion.attest_chunk(
+                        node["stark"], num_queries_agg=self.agg_queries, device=self.device
+                    )
+                except (AssertionError, KeyError, IndexError):
+                    # an invalid chunk proof (the transcription's own checks
+                    # or the prover's degree check) or one with parts
+                    # missing.  A kernel wrapper refuses its input with
+                    # ValueError / TypeError and a failing launch raises
+                    # RuntimeError: none of them is caught
+                    digests.append(None)
+                    continue
+                digests.append(chunk_digest(node["header"]))
+            else:
+                digests.append(self._validate(node))
+            kids.append(node)
         if None in digests:
             return GenAggregatedProofResult(
                 batch_id=batch_id, result_code=ProofResultCode.COMPLETED_ERROR,
@@ -240,7 +303,11 @@ class BatchProver:
         )
 
     def _validate(self, node: dict) -> Optional[List[int]]:
-        """Verify a chunk or aggregated proof; its digest, or None if invalid."""
+        """Verify a chunk, attested or aggregated proof; its digest, or None
+        if invalid.  An attested chunk is checked through its verifier-AIR
+        STARK alone, with the query count, the trace size and the terminal
+        pinned to the protocol's: they are fields of the attestation that
+        an attacker could shrink."""
         kind = node.get("type")
         if kind == "chunk":
             if not stark.verify_chunk(node["stark"], self.stark_params):
@@ -252,8 +319,21 @@ class BatchProver:
                 return None
             digest = poseidon.hash_two_host(*d)
             return digest if [str(x) for x in digest] == node["digest"] else None
-        if kind in ("chunk-attested", "chunk-attested-wrap"):
-            raise NotImplementedError(f"attested children are {_NOT_PORTED}")
+        if kind == "chunk-attested":
+            rows = self.chunk_trace_rows
+            if rows is None:  # no fixed chunk shape to pin the attestation to
+                return None
+            try:
+                return recursion.verify_attestation(
+                    node,
+                    expected_queries=self.stark_params.num_queries,
+                    expected_rows=rows,
+                    expected_terminal=min(self.stark_params.terminal_size, 4 * rows),
+                )
+            except (AssertionError, KeyError, ValueError, TypeError, IndexError):
+                return None  # host code only: no kernel's error can hide here
+        if kind == "chunk-attested-wrap":
+            raise NotImplementedError(f"wrap-profile attestations are {_NOT_PORTED}")
         return None
 
     # -- step 4 --------------------------------------------------------------

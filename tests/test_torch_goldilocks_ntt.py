@@ -126,3 +126,17 @@ def test_gf_converters_round_trip():
     assert (gl.to_int(t) == a).all()
     lo, hi = convert.tensor_to_gf(t)
     assert (lo == g.lo).all() and (hi == g.hi).all()
+
+
+@pytest.mark.parametrize("block_cols", [None, 1, 2, 5])
+def test_lde_columns_in_blocks_matches_the_whole_transform(block_cols):
+    """The AIR prover's blocked INTT + coset LDE of a column matrix (here the
+    transpose of a (rows, columns) trace, a strided view) equals the unblocked
+    transform and the JAX package's."""
+    rows = np.random.default_rng(77).integers(0, gl.P, (64, 5), dtype=np.uint64)
+    cols = gl.from_int(rows, "cpu").T
+    got = ntt.lde_columns(cols, 8, 7, block_cols=block_cols)
+    assert got.shape == (5, 512)
+    assert torch.equal(got, ntt.lde(ntt.intt(cols), 8, 7))
+    want = jntt.lde(jntt.intt(jgl.from_int(np.ascontiguousarray(rows.T))), 8, 7)
+    assert (gl.to_int(got) == jgl.to_int(want)).all()

@@ -8,7 +8,10 @@ is not installed:
 
 Inputs come from numpy with a fixed seed, at the batch proof's shapes (32
 windows x 1,326 MSM points; the scan step and the mixed add at a quarter of
-that; the G2 and masked adds at an eighth).  Tolerance: none — kernel and
+that; the G2 and masked adds at an eighth; kernel E, Poseidon2 over
+Goldilocks, on rows of every kind of length, column-major and strided
+inputs, and a tiny attestation proved on the card against the CPU's).
+Tolerance: none — kernel and
 plain version must agree bit for bit, and the MSMs must equal the host sum
 of scalar multiples.
 """
@@ -347,3 +350,100 @@ def test_msm_g1_device_on_the_card_matches_host():
     assert kernels.LAUNCHES["point_scan_step"] == 4
     assert kernels.LAUNCHES["point_add"] > 0 and kernels.LAUNCHES["mont_mul"] > 0
     assert msm.msm_g1_fast(pts, sc, device=dev) == want
+
+
+# ---------------------------------------------------------------------------
+# kernel E: Poseidon2 over Goldilocks
+
+
+def _gl_words(rng, shape, dev):
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+
+    return gl.from_int(rng.integers(0, gl.P, shape, dtype=np.uint64), dev)
+
+
+@pytest.mark.gpu
+def test_poseidon2_perm_kernel_matches_plain():
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon
+
+    dev = _cuda()
+    states = _gl_words(np.random.default_rng(10), (3, 1000, 12), dev)
+    states[0, 0], states[0, 1], states[0, 2, ::2] = 0, gl.as_i64(gl.P - 1), gl.as_i64(gl.P - 1)
+    before = kernels.LAUNCHES["poseidon2"]
+    got = poseidon.perm(states)
+    assert kernels.LAUNCHES["poseidon2"] == before + 1
+    assert got.shape == states.shape and torch.equal(got, poseidon.perm_plain(states))
+    for i in range(3):
+        host = poseidon.perm_host([int(v) for v in gl.to_int(states[0, i])])
+        assert [int(v) for v in gl.to_int(got[0, i])] == host
+    assert poseidon.perm(states[:0]).shape == (0, 1000, 12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [0, 1, 7, 8, 9, 13, 16, 216])
+def test_poseidon2_hash_rows_kernel_matches_plain(k):
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon
+
+    dev = _cuda()
+    n = 777
+    cols = _gl_words(np.random.default_rng(11 + k), (k, n), dev)
+    cols[:, 0], cols[:, 1] = 0, gl.as_i64(gl.P - 1)
+    rows = cols.T  # column-major rows, read through their strides
+    before = kernels.LAUNCHES["poseidon2"]
+    got = poseidon.hash_elements(rows)
+    assert kernels.LAUNCHES["poseidon2"] == before + 1
+    assert got.shape == (n, 4) and torch.equal(got, poseidon.hash_elements_plain(rows))
+    assert torch.equal(poseidon.hash_elements(rows.contiguous()), got)
+    assert torch.equal(poseidon.hash_elements(rows.reshape(7, 111, k)), got.reshape(7, 111, 4))
+    for i in (0, 1, n - 1):
+        host = poseidon.hash_elements_host([int(v) for v in gl.to_int(rows[i])])
+        assert [int(v) for v in gl.to_int(got[i])] == host
+
+
+@pytest.mark.gpu
+def test_poseidon2_hash_two_kernel_and_merkle_tree_match_plain():
+    from eigen_zeth_tpu_torch.models import merkle
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon
+
+    dev = _cuda()
+    level = _gl_words(np.random.default_rng(12), (2, 4096, 4), dev)
+    level[0, 0], level[0, 1] = 0, gl.as_i64(gl.P - 1)
+    left, right = level[:, 0::2], level[:, 1::2]  # strided digests, read in place
+    before = kernels.LAUNCHES["poseidon2"]
+    got = poseidon.hash_two(left, right)
+    assert kernels.LAUNCHES["poseidon2"] == before + 1
+    assert torch.equal(got, poseidon.hash_two_plain(left, right))
+    host = poseidon.hash_two_host([int(v) for v in gl.to_int(left[0, 0])],
+                                  [int(v) for v in gl.to_int(right[0, 0])])
+    assert [int(v) for v in gl.to_int(got[0, 0])] == host
+    # a whole tree over wide rows: 1 launch for the leaves, 1 per level
+    rows = _gl_words(np.random.default_rng(13), (256, 13), dev)
+    before = kernels.LAUNCHES["poseidon2"]
+    tree = merkle.commit_tree(rows)
+    assert kernels.LAUNCHES["poseidon2"] == before + 1 + 8
+    cpu_tree = merkle.commit_tree(rows.cpu())
+    assert tree.root() == cpu_tree.root() and tree.open_many([0, 77, 255]) == cpu_tree.open_many([0, 77, 255])
+    with pytest.raises(TypeError):
+        poseidon.hash_two(left.to(torch.int32), right.to(torch.int32))
+    with pytest.raises(ValueError):
+        poseidon.hash_two(left, right.cpu())
+
+
+@pytest.mark.gpu
+def test_attestation_on_the_card_equals_the_cpu_one():
+    """The tiny zero-layer attestation proved on the card (kernel E in every
+    Merkle commit) and on the CPU (the plain versions): the same dict."""
+    from eigen_zeth_tpu_torch.models import recursion, stark
+
+    dev = _cuda()
+    params = stark.StarkParams(blowup=4, num_queries=2, terminal_size=32)
+    child = stark.prove_chunk([3, 1, 4, 1, 5, 9, 2], 7, params, n_rows=8, device=dev)
+    assert child == stark.prove_chunk([3, 1, 4, 1, 5, 9, 2], 7, params, n_rows=8, device="cpu")
+    kernels.reset_launches()
+    att = recursion.attest_chunk(child, num_queries_agg=8, device=dev)
+    assert kernels.LAUNCHES["poseidon2"] > 0
+    assert att == recursion.attest_chunk(child, num_queries_agg=8, device=torch.device("cpu"))
+    assert recursion.verify_attestation(att, expected_queries=2, expected_rows=8)

@@ -3,8 +3,9 @@ JAX package.
 
 Poseidon is held against the JAX package's numpy permutation (`np_perm`)
 and its python-int sponges; Merkle trees against `merkle.commit_leaves` on
-the CPU; the fold against `fri.fold_layer` run eagerly.  Inputs come from
-numpy with a fixed seed.  Tolerance: none — exact integer equality.
+the CPU (wide and ragged rows included, as the AIR prover commits them);
+the fold against `fri.fold_layer` run eagerly and the single-polynomial
+prover against `fri.fri_prove`.  Inputs come from numpy with a fixed seed.  Tolerance: none — exact integer equality.
 """
 
 import numpy as np
@@ -128,3 +129,68 @@ def test_fri_params_schedule_is_the_jax_one():
             a = fri.FriParams(terminal_size=16, arity=arity)
             b = jfri.FriParams(terminal_size=16, arity=arity)
             assert a.layer_schedule(m) == b.layer_schedule(m)
+
+
+@pytest.mark.parametrize("k", [0, 1, 9, 13, 216])
+def test_hash_elements_on_wide_and_ragged_rows(k):
+    """Rows of the AIR prover's kinds: empty, shorter than the rate, one past
+    it, not a multiple of 8, and the attestation trace's 216 columns; as a
+    row-major tensor and as the transpose of a column matrix."""
+    rows = _rand((6, k), 20 + k)
+    rows[0], rows[1] = 0, P - 1
+    want = jps.np_hash_elements(rows)
+    got = gl.to_int(ps.hash_elements(gl.from_int(rows, "cpu")))
+    assert got.shape == (6, 4) and (got == want).all()
+    cols = gl.from_int(np.ascontiguousarray(rows.T), "cpu")
+    assert (gl.to_int(ps.hash_elements(cols.T)) == want).all()
+    assert (gl.to_int(ps.hash_elements_plain(cols.T)) == want).all()
+    for r in (0, 1, 5):
+        assert [int(v) for v in got[r]] == ps.hash_elements_host([int(v) for v in rows[r]])
+
+
+def test_internal_matrix_is_the_jax_one():
+    assert ps.internal_matrix() == jps.internal_matrix()
+
+
+@pytest.mark.parametrize("n,k", [(64, 13), (8, 216), (2, 9)])
+def test_commit_tree_over_wide_rows_matches_jax(n, k):
+    leaves = _rand((n, k), 30 + k)
+    cols = gl.from_int(np.ascontiguousarray(leaves.T), "cpu")
+    tree = merkle.commit_tree(cols.T)  # the AIR prover's call: rows of a column matrix
+    ref = jmerkle.commit_leaves(jgl.from_int(leaves), prefer_host=True)
+    assert isinstance(tree, merkle.MerkleTree) and tree.root() == ref.root()
+    idx = [0, n - 1, n // 2]
+    assert tree.open_many(idx) == ref.open_many(idx)
+    for i in idx:
+        assert merkle.verify_path(tree.root(), i, [int(v) for v in leaves[i]], tree.open(i))
+
+
+@pytest.mark.parametrize("m,terminal,blowup", [(512, 64, 4), (64, 64, 4), (256, 16, 2)])
+def test_fri_prove_matches_jax(m, terminal, blowup):
+    """The single-polynomial prover (the AIR path): the same proof dict as
+    the JAX package's host-orchestrated `fri_prove`, accepted by both
+    verifiers; a polynomial of too high a degree is refused."""
+    deg = m // blowup
+    coeffs = np.zeros(m, dtype=np.uint64)
+    coeffs[:deg] = _rand(deg, 40 + m)
+    evals = gl.np_ntt(gl.np_mulmod(coeffs, gl.powers_np(7, m)))  # on the coset 7·H
+    a = fri.FriParams(blowup=blowup, num_queries=5, terminal_size=terminal)
+    b = jfri.FriParams(blowup=blowup, num_queries=5, terminal_size=terminal)
+    t, jt = transcript.Transcript("fri-test"), jtranscript.Transcript("fri-test")
+    got = fri.fri_prove(gl.from_int(evals, "cpu"), 7, t, a)
+    want = jfri.fri_prove(jgl.from_int(evals), 7, jt, b, fused=False)
+    assert got.proof == want.proof and got.layer0_indices == want.layer0_indices
+    assert t.challenge("after") == jt.challenge("after")
+    assert fri.fri_verify(want.proof, transcript.Transcript("fri-test"), a)[0]
+    assert jfri.fri_verify(got.proof, jtranscript.Transcript("fri-test"), b)[0]
+    coeffs[deg] = 1
+    bad = gl.np_ntt(gl.np_mulmod(coeffs, gl.powers_np(7, m)))
+    with pytest.raises(AssertionError, match="terminal degree"):
+        fri.fri_prove(gl.from_int(bad, "cpu"), 7, transcript.Transcript("fri-test"), a)
+
+
+def test_fri_params_grind_bits_default_and_refusal():
+    assert fri.FriParams().grind_bits == jfri.FriParams().grind_bits == 0
+    ev = gl.from_int(np.zeros(128, dtype=np.uint64), "cpu")
+    with pytest.raises(AssertionError, match="grind"):
+        fri.fri_prove(ev, 7, transcript.Transcript("g"), fri.FriParams(grind_bits=4))
