@@ -14,11 +14,13 @@ the entry points a user calls, and checks every stage:
      20 windows x 8,192 lanes, the power at 32 window sums, the G2 add at
      32 windows x 896 points; the point adds also under a mask, all set,
      none set and mixed, for both kept operands; kernel E, Poseidon2 over
-     Goldilocks, through its three entry points: the sponge over the
+     Goldilocks, through its four entry points: the sponge over the
      attestation trace's 2^21 rows of 216 columns as the AIR prover hands
      them over, column-major, and over FRI's 2^20 pairs, a Merkle level of
-     2^20 strided digest pairs, 2^18 bare permutations), with edge cases
-     checked against host arithmetic.  Three times per kernel: at the path's shape
+     2^20 strided digest pairs, 2^18 bare permutations with states aimed at
+     the lazy field core's bounds, a whole 2^21-leaf tree in one launch and
+     9 batched trees of 2^14 leaves), with edge cases checked against host
+     arithmetic.  Three times per kernel: at the path's shape
      (CUDA events around runs of back-to-back launches, median), the
      host's cost of a launch (host clock around 200 launches, nothing
      synchronised inside), and the device time at a batch where the card's
@@ -50,7 +52,8 @@ the entry points a user calls, and checks every stage:
      stage; checks every chunk proof with verify_chunk, every attestation
      with recursion.verify_attestation under the pinned shape, the
      aggregated digest, the final proof with groth16.verify, and that
-     kernel E was launched in steps 2 and 3
+     kernel E was launched in steps 2 and 3, at most 60 times an
+     attestation
 
 Before each of the paths 5-9 the launch counts are set to 0, and read just
 after: every kernel of that path must have been launched, and Montgomery
@@ -74,7 +77,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from eigen_zeth_tpu_torch.models import air, groth16, kzg, recursion, stark
+from eigen_zeth_tpu_torch.models import air, groth16, kzg, merkle, recursion, stark
 from eigen_zeth_tpu_torch.ops import bn254, kernels, msm, poseidon
 from eigen_zeth_tpu_torch.ops import goldilocks as gl
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
@@ -101,6 +104,9 @@ RECURSION_BLOCKS = 1600
 ATT_ROWS, ATT_COLS = 1 << 21, 216
 E_PLAIN_ROWS = 1 << 12  # rows of the wide matrix that the plain version hashes
 E_PERM_BATCH = 1 << 18
+E_EDGE = 256  # states of edge lanes among them
+E_CHUNK_LEAVES = 1 << 14  # a chunk STARK's leaves: 4,096 rows at blowup 4
+E_ATTESTATION_MOST = 60  # kernel E launches one attestation may take
 CHAIN_ID = 12345
 
 # The card's peak rates for the bounds (NVIDIA H100 SXM data sheet): device
@@ -133,10 +139,15 @@ KERNEL_WORK = {
     "point_add_g2_masked": (18 * 64 + 4, 11 * 3 + 5 * 2, 0),
 }
 # Kernel E: a Goldilocks product is four 32 x 32 wide multiply-adds (the
-# 128-bit product; the fold is shifts, adds and compares), a permutation 736
-# products: 8 full rounds x 12 lanes x 4, 22 partial rounds x (4 + 12).
+# 128-bit product; the fold is shifts, adds and compares), a squaring three
+# (the cross product once).  A permutation is 736 products: 8 full rounds x
+# 12 lanes x 4 and 22 partial rounds x (4 + 12), where each of the 118
+# S-boxes (x^7 = x^4·x^3) squares twice: 236 squarings and 500 products.
 MADS_PER_GL_MUL = 4
-GL_MULS_PER_PERM = 8 * 12 * 4 + 22 * (4 + 12)
+MADS_PER_GL_SQR = 3
+GL_SQRS_PER_PERM = 2 * (8 * 12 + 22)
+GL_MULS_PER_PERM = 8 * 12 * 4 + 22 * (4 + 12) - GL_SQRS_PER_PERM
+MADS_PER_PERM = GL_MULS_PER_PERM * MADS_PER_GL_MUL + GL_SQRS_PER_PERM * MADS_PER_GL_SQR
 # the wide multiply-add rate that the probe measures in this run (phase_build)
 PROBED_MADS_PER_S = {"rate": INT32_MADS_PER_S}
 AGGREGATOR = "0x" + "11" * 20
@@ -448,9 +459,9 @@ def poseidon_bound(rows: int, k_in: int, k_out: int, perms_per_row: int,
                    mads_per_s: float = INT32_MADS_PER_S) -> dict:
     """The least time the card could take for one launch of kernel E over
     `rows` rows: k_in words read and k_out written per row against
-    perms_per_row permutations of 736 field products."""
+    perms_per_row permutations of MADS_PER_PERM wide multiply-adds."""
     by_bytes = rows * (k_in + k_out) * 8 / HBM_BYTES_PER_S * 1e3
-    by_ops = rows * perms_per_row * GL_MULS_PER_PERM * MADS_PER_GL_MUL / mads_per_s * 1e3
+    by_ops = rows * perms_per_row * MADS_PER_PERM / mads_per_s * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -460,9 +471,9 @@ def _random_gl(rng, shape, device) -> torch.Tensor:
 
 
 def _phase_poseidon_kernel(device, rng) -> dict:
-    """Kernel E's three entry points against their plain versions, bit for
-    bit, at the shapes the provers give them, with edge values and row
-    lengths checked against the host sponge too."""
+    """Kernel E's four entry points against their plain versions, bit for
+    bit, at the shapes the provers give them, with edge values, row lengths
+    and tree nodes checked against the host sponge and compression too."""
     P = gl.P
     err = 0
 
@@ -477,14 +488,20 @@ def _phase_poseidon_kernel(device, rng) -> dict:
                 "plain_rows": plain_rows, **big,
                 "probed_bound_ms": probed["bound_ms"], "probed_bound_by": probed["bound_by"]}
 
-    # perm: 2^18 states, the first rows all 0, all p - 1 and mixed
+    # perm: 2^18 states; the first rows aim at the lazy core's bounds: every
+    # lane 0, 1, p - 1 (which drives each partial round's mu_i·s_i towards
+    # its maximum), p - 2^32, 2^32 - 1, 2^32, then random mixes of those
     states = _random_gl(rng, (E_PERM_BATCH, 12), device)
-    states[0], states[1], states[2, ::2] = 0, gl.as_i64(P - 1), gl.as_i64(P - 1)
+    edge = [0, 1, P - 1, P - (1 << 32), (1 << 32) - 1, 1 << 32]
+    edge_rows = [[v] * 12 for v in edge] + [list(rng.choice(edge, 12)) for _ in range(E_EDGE - 6)]
+    states[:E_EDGE] = gl.from_int(np.asarray(edge_rows, dtype=np.uint64), device)
     same("perm", poseidon.perm(states), poseidon.perm_plain(states))
-    for i in range(3):
+    for i in range(0, E_EDGE, 3):
         if [int(v) for v in gl.to_int(poseidon.perm(states[i]))] != poseidon.perm_host(
                 [int(v) for v in gl.to_int(states[i])]):
             raise AssertionError(f"poseidon2 perm differs from the host permutation (state {i})")
+    flat = states[:E_EDGE].reshape(-1, 24)  # the edge words through the sponge
+    same("hash_rows on edge words", poseidon.hash_elements(flat), poseidon.hash_elements_plain(flat))
     entries = {"perm": entry(E_PERM_BATCH, 12, 12, 1, lambda: poseidon.perm(states),
                              lambda: poseidon.perm_plain(states), E_PERM_BATCH, 5)}
 
@@ -544,6 +561,31 @@ def _phase_poseidon_kernel(device, rng) -> dict:
                                 lambda: poseidon.hash_two_plain(left, right), ATT_ROWS // 2, 5)
     small = level[:2048]
     host_us = host_us_per_launch(lambda: poseidon.hash_two(small[0::2], small[1::2]))
+
+    # the tree entry: the attestation's 2^21-leaf trace tree in one launch,
+    # each level against the plain version, nodes at the bottom, the middle
+    # and the top against the host compression; a batch of K = 9 trees of
+    # 2^14 leaves (the chunk STARKs' batched commit) against the plain version
+    before = kernels.LAUNCHES["poseidon2"]
+    tree = merkle.commit_digests(level)
+    launched = kernels.LAUNCHES["poseidon2"] - before
+    if launched != 1:
+        raise AssertionError(f"a 2^21-leaf tree took {launched} launches of kernel E, expected 1")
+    for depth, (got, ref) in enumerate(zip(tree[1:], poseidon.merkle_levels_plain(level)), 1):
+        same(f"tree level {depth}", got, ref)
+    top = ATT_ROWS.bit_length() - 1
+    for depth, i in ((1, 0), (1, ATT_ROWS // 2 - 1), (top // 2, 1), (top, 0)):
+        kids = [[int(v) for v in gl.to_int(tree[depth - 1][2 * i + c])] for c in (0, 1)]
+        if [int(v) for v in gl.to_int(tree[depth][i])] != poseidon.hash_two_host(*kids):
+            raise AssertionError(f"tree node {i} of level {depth} differs from the host compression")
+    chunks = _random_gl(rng, (9, E_CHUNK_LEAVES, 4), device)
+    for got, ref in zip(poseidon.merkle_levels(chunks), poseidon.merkle_levels_plain(chunks)):
+        same("tree entry on 9 batched trees", got, ref)
+    entries["tree"] = entry(ATT_ROWS - 1, 4, 4, 1, lambda: merkle.commit_digests(level),
+                            lambda: poseidon.merkle_levels_plain(level), ATT_ROWS - 1, 5)
+    log(f"[kernels] poseidon2 tree: {ATT_ROWS} leaves in {launched} launch, every level equal "
+        f"to the plain version, nodes equal to the host compression; 9 batched trees of "
+        f"{E_CHUNK_LEAVES} leaves equal to the plain version")
 
     for name, e in entries.items():
         log(f"[kernels] poseidon2 {name}: bit-exact vs plain; {e['rows']} rows: kernel "
@@ -946,6 +988,10 @@ def phase_recursion(device) -> dict:
         raise AssertionError("the final Groth16 proof does not verify")
     for step in ("gen_chunk_proof", "gen_aggregated_proof"):
         require_launches(f"recursion, {step}", steps[step], ("poseidon2",))
+    per_attestation = steps["gen_aggregated_proof"]["poseidon2"] / len(agg["children"])
+    if per_attestation > E_ATTESTATION_MOST:
+        raise AssertionError(f"{per_attestation} launches of kernel E per attestation, "
+                             f"expected at most {E_ATTESTATION_MOST}")
     require_launches("recursion", launches,
                      ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_add_g2",
                       "point_add_g2_masked", "poseidon2"))
@@ -955,6 +1001,7 @@ def phase_recursion(device) -> dict:
         f"{prover.agg_queries} queries of the attestation STARK, mimc wrap")
     for step, s in times.items():
         log(f"[recursion] {step}: {s:.3f} s, poseidon2 launches {steps[step]['poseidon2']}")
+    log(f"[recursion] kernel E launches per attestation: {per_attestation:g}")
     k = 0
     for name, s, mem in stages:
         k += name == "trace"

@@ -4,117 +4,69 @@
 //
 // Replaces, on the card, what the JAX package computes in
 // eigen_zeth_tpu/ops/poseidon.py:431 (`perm`), :494 (`hash_elements`) and
-// :525 (`hash_two`) and, on its AIR path, in its native host hasher
-// (eigen_zeth_tpu/native/poseidon2.py:76-118).  Three entry points:
+// :525 (`hash_two`), in eigen_zeth_tpu/models/merkle.py:62-73 and :184-220
+// (`commit_digests`, `_tree_prog`: a Merkle tree, one or several levels an
+// XLA program) and, on its AIR path, in its native host hasher
+// (eigen_zeth_tpu/native/poseidon2.py:76-118).  Four entry points:
 //
-//   ezt_poseidon2_perm       (N, 12) states -> (N, 12)
-//   ezt_poseidon2_hash_rows  (N, k) rows -> (N, 4) digests, the whole sponge
-//                            of a row in one thread, any k >= 0
-//   ezt_poseidon2_hash_two   (N, 4) x (N, 4) -> (N, 4), a Merkle level
+//   ezt_poseidon2_perm          (N, 12) states -> (N, 12)
+//   ezt_poseidon2_hash_rows     (N, k) rows -> (N, 4) digests, the whole
+//                               sponge of a row in one thread, any k >= 0
+//   ezt_poseidon2_hash_two      (N, 4) x (N, 4) -> (N, 4), a Merkle level
+//   ezt_poseidon2_merkle_levels K trees' level of n digests -> every level
+//                               above it (a whole tree) in one launch
 //
-// What bounds it on the H100.  A permutation is 736 field products (8 full
-// rounds x 12 lanes x 4 for x^7, 22 partial rounds x (4 + 12 for the
-// diagonal)), each four 32 x 32 wide multiply-adds and a fold of compares and
-// adds, against 32 to 96 bytes moved: by the card's rates the integer pipe
-// takes hundreds of times longer than the memory, so the kernel is bound by
-// operations at every shape.  The design follows from that: the twelve lanes
-// stay in registers through all 30 rounds (the plain PyTorch version writes
-// every intermediate of every round to device memory, about 9,000 small
-// launches a permutation), the sponge of a whole row runs in one thread so
-// that nothing but the row and its digest touches memory, and the round
-// constants sit in the kernel's parameter bank, read uniformly by a warp.
-// The round loops are not unrolled (one copy of a full and of a partial round
-// keeps the code in the instruction cache); the lane loops are.
+// The Merkle commits of the port run the tree entry; `hash_two` stays as the
+// card's form of `poseidon.hash_two` (the JAX package's `hash_two`, one level
+// of pairs at any strides), the entry that earlier kernels of E also have.
+//
+// What bounds it on the H100: instruction issue.  A permutation is 736
+// products of 64-bit words (8 full rounds x 12 lanes x 4 for x^7, 22
+// partial rounds x (4 + 12 for the diagonal)) against 32 to 96 bytes moved,
+// so the integer pipes, not the memory, set its time at every shape.  The
+// permutation lives in poseidon2_gl.cuh on the lazy field core of
+// goldilocks.cuh: the twelve lanes stay in registers through all 30 rounds
+// as 64-bit words that need not be canonical, sums gather in 96- and 128-bit
+// accumulators on carry chains, each product and each linear-layer output
+// is reduced once, the round constants ride on those sums, and only what
+// leaves the kernel is made canonical (keeping every intermediate canonical
+// costs about two thirds of what a permutation issues).  The constants sit
+// in the kernel's parameter bank (`__grid_constant__`), read uniformly by a
+// warp.
 //
 // `hash_rows` takes the row and column strides of its input, so the caller
 // hands it a column-major matrix (the AIR prover's (columns, coset) LDE) as
 // it lies: thread i then reads element j of row i at in[j·col_stride + i],
-// neighbouring threads neighbouring words.  Inputs must be canonical (< p);
-// outputs are, and equal the plain version's bit for bit.
+// neighbouring threads neighbouring words.
+//
+// `merkle_levels` takes the place of one `hash_two` launch per level:
+// every level runs at the width of a block (`merkle_levels_kernel`), its
+// first level read in place with the strides `hash_two` takes, every level
+// written to its own contiguous (K, n / 2^j, 4) tensor, a whole tree in one
+// launch.  Not a subtree per block in shared memory: its top levels would
+// run on one partly filled warp while the rest of the block waits at the
+// barrier holding its registers (measured slower than level by level).
+//
+// Inputs must be canonical (< p); outputs are, and equal the plain
+// version's bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cstring>
 
-#include "goldilocks.cuh"
+#include "poseidon2_gl.cuh"
 
 namespace {
 
 using ezt::gl::u64;
-namespace gl = ezt::gl;
+namespace lz = ezt::gl::lazy;
+namespace p2 = ezt::poseidon2;
+using p2::Consts;
+using p2::kDigest;
+using p2::kRate;
+using p2::kWidth;
 
 constexpr int kThreads = 256;
-constexpr int kWidth = 12;
-constexpr int kRate = 8;
-constexpr int kDigest = 4;
-constexpr int kHalfFull = 4;
-constexpr int kPartial = 22;
-
-// The instance's constants as the host lays them out: the additive constants
-// of the 8 full rounds (first half, then second half), lane 0's constant of
-// each partial round, the internal diagonal.  130 words.
-struct Consts {
-  u64 full[2 * kHalfFull][kWidth];
-  u64 partial[kPartial];
-  u64 diag[kWidth];
-};
-
-// M4 by the Poseidon2 addition chain.
-__device__ __forceinline__ void m4(u64& x0, u64& x1, u64& x2, u64& x3) {
-  const u64 t0 = gl::add(x0, x1);
-  const u64 t1 = gl::add(x2, x3);
-  const u64 t2 = gl::add(gl::dbl(x1), t1);
-  const u64 t3 = gl::add(gl::dbl(x3), t0);
-  const u64 t4 = gl::add(gl::dbl(gl::dbl(t1)), t3);
-  const u64 t5 = gl::add(gl::dbl(gl::dbl(t0)), t2);
-  x0 = gl::add(t3, t5);
-  x1 = t5;
-  x2 = gl::add(t2, t4);
-  x3 = t4;
-}
-
-// s <- circ(2·M4, M4, M4)·s
-__device__ __forceinline__ void external(u64 (&s)[kWidth]) {
-#pragma unroll
-  for (int b = 0; b < 3; ++b) m4(s[4 * b], s[4 * b + 1], s[4 * b + 2], s[4 * b + 3]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const u64 tot = gl::add(gl::add(s[i], s[4 + i]), s[8 + i]);
-    s[i] = gl::add(s[i], tot);
-    s[4 + i] = gl::add(s[4 + i], tot);
-    s[8 + i] = gl::add(s[8 + i], tot);
-  }
-}
-
-__device__ __forceinline__ u64 sbox(u64 x) {
-  const u64 x2 = gl::sqr(x);
-  const u64 x4 = gl::sqr(x2);
-  return gl::mul(gl::mul(x4, x2), x);
-}
-
-__device__ __forceinline__ void full_round(u64 (&s)[kWidth], const u64* rc) {
-#pragma unroll
-  for (int i = 0; i < kWidth; ++i) s[i] = sbox(gl::add(s[i], rc[i]));
-  external(s);
-}
-
-__device__ __forceinline__ void permute(u64 (&s)[kWidth], const Consts& c) {
-  external(s);
-#pragma unroll 1
-  for (int r = 0; r < kHalfFull; ++r) full_round(s, c.full[r]);
-#pragma unroll 1
-  for (int r = 0; r < kPartial; ++r) {
-    s[0] = sbox(gl::add(s[0], c.partial[r]));
-    u64 lo = gl::add(gl::add(s[0], s[1]), gl::add(s[2], s[3]));
-    u64 mid = gl::add(gl::add(s[4], s[5]), gl::add(s[6], s[7]));
-    u64 hi = gl::add(gl::add(s[8], s[9]), gl::add(s[10], s[11]));
-    const u64 tot = gl::add(gl::add(lo, mid), hi);
-#pragma unroll
-    for (int i = 0; i < kWidth; ++i) s[i] = gl::add(tot, gl::mul(s[i], c.diag[i]));
-  }
-#pragma unroll 1
-  for (int r = kHalfFull; r < 2 * kHalfFull; ++r) full_round(s, c.full[r]);
-}
 
 __global__ void __launch_bounds__(kThreads)
     perm_kernel(const u64* __restrict__ in, u64* __restrict__ out, int64_t n,
@@ -124,9 +76,9 @@ __global__ void __launch_bounds__(kThreads)
   u64 s[kWidth];
 #pragma unroll
   for (int j = 0; j < kWidth; ++j) s[j] = in[i * kWidth + j];
-  permute(s, c);
+  p2::permute(s, c);
 #pragma unroll
-  for (int j = 0; j < kWidth; ++j) out[i * kWidth + j] = s[j];
+  for (int j = 0; j < kWidth; ++j) out[i * kWidth + j] = lz::canon(s[j]);
 }
 
 // The sponge of row i: lane 8 starts at k, every block of 8 elements is added
@@ -149,12 +101,28 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kRate; ++j) {
       const int64_t e = b * kRate + j;
-      if (e < k) s[j] = gl::add(s[j], row[e * col_stride]);
+      if (e < k) s[j] = lz::add(s[j], row[e * col_stride]);
     }
-    permute(s, c);
+    p2::permute(s, c);
   }
 #pragma unroll
-  for (int j = 0; j < kDigest; ++j) out[i * kDigest + j] = s[j];
+  for (int j = 0; j < kDigest; ++j) out[i * kDigest + j] = lz::canon(s[j]);
+}
+
+// The 2-to-1 compression of two digests into `d`; `via_l2` reads them
+// through L2, past this SM's L1, where another block of the launch wrote them.
+__device__ __forceinline__ void compress(const u64* left, const u64* right, bool via_l2,
+                                         u64 (&d)[kDigest], const Consts& c) {
+  u64 s[kWidth];
+#pragma unroll
+  for (int j = 0; j < kDigest; ++j) {
+    s[j] = via_l2 ? __ldcg(left + j) : left[j];
+    s[kDigest + j] = via_l2 ? __ldcg(right + j) : right[j];
+    s[2 * kDigest + j] = 0;
+  }
+  p2::permute(s, c);
+#pragma unroll
+  for (int j = 0; j < kDigest; ++j) d[j] = lz::canon(s[j]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -164,16 +132,66 @@ __global__ void __launch_bounds__(kThreads)
                     const __grid_constant__ Consts c) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  u64 s[kWidth];
+  u64 d[kDigest];
+  compress(left + i * left_stride, right + i * right_stride, false, d, c);
 #pragma unroll
-  for (int j = 0; j < kDigest; ++j) {
-    s[j] = left[i * left_stride + j];
-    s[kDigest + j] = right[i * right_stride + j];
-    s[2 * kDigest + j] = 0;
+  for (int j = 0; j < kDigest; ++j) out[i * kDigest + j] = d[j];
+}
+
+constexpr int kMaxLevels = 63;
+
+struct LevelOuts {
+  u64* level[kMaxLevels];  // level j + 1 above the input: (K, n >> (j + 1), 4)
+};
+
+// The levels above `in` up to the root, every one at the width of a block.
+// Block (x, y) first hashes nodes x·256 .. x·256 + 255 of tree y's level 1;
+// after each level the block that finishes second of a pair of sibling
+// groups (an atomic ticket, after a fence that publishes the group's
+// digests) goes on to the 256 nodes above the pair, reading its sibling's
+// digests through L2, and the other block exits.  Nothing waits on
+// anything, every level but the last eight of a tree runs 256 threads a
+// block, and a whole tree is one launch.  `tickets`: zeroed, one counter
+// per pair of groups and level.
+__global__ void __launch_bounds__(kThreads)
+    merkle_levels_kernel(const u64* in, int64_t batch_stride,
+                         int64_t row_stride, int64_t n, LevelOuts outs,
+                         unsigned* __restrict__ tickets, int64_t tickets_per_tree,
+                         const __grid_constant__ Consts c) {
+  __shared__ unsigned last;
+  const int t = threadIdx.x;
+  const int64_t tree = blockIdx.y;
+  int64_t group = blockIdx.x;
+  int64_t width = n >> 1;  // nodes of the level being hashed, per tree
+  unsigned* ticket = tickets + tree * tickets_per_tree;
+  const u64* below = in + tree * batch_stride;  // the level under it
+  int64_t stride = row_stride;
+  for (int lv = 0; width > 0; ++lv) {
+    const int64_t node = group * kThreads + t;
+    if (node < width) {
+      u64 d[kDigest];
+      const u64* pair = below + 2 * node * stride;
+      compress(pair, pair + stride, lv != 0, d, c);  // a level this launch wrote: via L2
+      u64* out = outs.level[lv] + (tree * width + node) * kDigest;
+#pragma unroll
+      for (int j = 0; j < kDigest; ++j) out[j] = d[j];
+    }
+    if (width > kThreads) {  // two or more groups: meet the sibling
+      __threadfence();
+      __syncthreads();
+      if (t == 0) last = atomicAdd(ticket + (group >> 1), 1u);
+      __syncthreads();
+      if (last == 0) return;  // the sibling goes on
+      __threadfence();
+      ticket += width / (2 * kThreads);  // this level's pairs of groups
+      group >>= 1;
+    } else {
+      __syncthreads();  // this block wrote the whole level
+    }
+    below = outs.level[lv] + tree * width * kDigest;
+    stride = kDigest;
+    width >>= 1;
   }
-  permute(s, c);
-#pragma unroll
-  for (int j = 0; j < kDigest; ++j) out[i * kDigest + j] = s[j];
 }
 
 inline Consts load_consts(const void* words) {
@@ -188,9 +206,10 @@ inline unsigned grid(long long n) {
 
 }  // namespace
 
-// All pointers but `consts` are device pointers to canonical 64-bit words;
-// `consts` is a host pointer to the 130 words of `Consts`; strides count
-// words.  Each function returns the cudaError_t of its launch (0 on success).
+// All pointers but `consts` and `outs` are device pointers to canonical
+// 64-bit words; `consts` is a host pointer to the 153 words of `Consts`;
+// strides count words.  Each function returns the cudaError_t of its launch
+// (0 on success).
 
 // in, out: (n, 12) contiguous states.
 extern "C" int ezt_poseidon2_perm(const void* in, void* out, long long n,
@@ -221,5 +240,29 @@ extern "C" int ezt_poseidon2_hash_two(const void* left, long long left_stride,
   hash_two_kernel<<<grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(left), left_stride, static_cast<const u64*>(right),
       right_stride, static_cast<u64*>(out), n, load_consts(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// in: `trees` levels of n digests of 4 contiguous words, digest i of tree y
+// at y·batch_stride + i·row_stride; n a power of two, n >= 2.  outs: a host
+// array of log2(n) device pointers, level j (from 1) a contiguous
+// (trees, n >> j, 4) tensor.  tickets: `trees` x tickets_per_tree zeroed
+// device words, tickets_per_tree >= max(1, n / 512).
+extern "C" int ezt_poseidon2_merkle_levels(const void* in, long long batch_stride,
+                                           long long row_stride, long long n,
+                                           long long trees, const void* const* outs,
+                                           void* tickets, long long tickets_per_tree,
+                                           const void* consts, void* stream) {
+  if (n < 2 || (n & (n - 1)) || trees < 1 || trees > 65535 || tickets_per_tree < (n >> 9))
+    return static_cast<int>(cudaErrorInvalidValue);
+  LevelOuts o{};
+  int levels = 0;
+  while ((n >> levels) > 1) ++levels;
+  for (int j = 0; j < levels; ++j) o.level[j] = static_cast<u64*>(const_cast<void*>(outs[j]));
+  const long long groups = (n / 2 + kThreads - 1) / kThreads;
+  const dim3 blocks(static_cast<unsigned>(groups), static_cast<unsigned>(trees));
+  merkle_levels_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(in), batch_stride, row_stride, n, o,
+      static_cast<unsigned*>(tickets), tickets_per_tree, load_consts(consts));
   return static_cast<int>(cudaGetLastError());
 }

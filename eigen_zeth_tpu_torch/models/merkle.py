@@ -1,9 +1,11 @@
 """Poseidon Merkle tree — port of eigen_zeth_tpu/models/merkle.py.
 
-Every level is one batched 2-to-1 Poseidon compression on the device; the
-levels stay there.  Openings gather the queried siblings of every level on
-the device and bring them to the host in one transfer.  Verification is
-host math (python ints).
+On the card a commit runs kernel E's tree entry, the whole tree in one
+launch (the JAX package's `_tree_prog` runs several levels in one XLA
+program); on the CPU every level is one batched 2-to-1 compression, the
+plain version.  The levels stay on the device.  Openings gather the
+queried siblings of every level on the device and bring them to the host
+in one transfer.  Verification is host math (python ints).
 
 The tensors may carry leading batch axes: `commit_leaves` on (K, N, k)
 rows commits K same-shape trees at once (the batched chunk prover), and
@@ -26,15 +28,10 @@ from ..ops import poseidon
 
 def commit_digests(leaf_digests: torch.Tensor) -> List[torch.Tensor]:
     """Levels over (..., N, 4) leaf digests, N a power of two:
-    [leaves, ..., root (..., 1, 4)]."""
+    [leaves, ..., root (..., 1, 4)]; on a CUDA tensor one launch."""
     n = leaf_digests.shape[-2]
     assert n & (n - 1) == 0 and n >= 1
-    levels = [leaf_digests]
-    cur = leaf_digests
-    while cur.shape[-2] > 1:
-        cur = poseidon.hash_two(cur[..., 0::2, :], cur[..., 1::2, :])
-        levels.append(cur)
-    return levels
+    return [leaf_digests] + poseidon.merkle_levels(leaf_digests)
 
 
 def open_batched(levels: List[torch.Tensor], idx: torch.Tensor) -> np.ndarray:

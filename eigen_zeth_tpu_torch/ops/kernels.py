@@ -19,11 +19,13 @@ MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
 add behind bn254.point_madd_unsafe.  `mont_pow` is a whole power (Fermat
 inversion) in one launch; `point_add_g2` is B over Fq2; both point adds take
 an optional mask that passes one operand through (the select of the MSM
-scans).  E is Poseidon2 over Goldilocks, one thread per state, with three
-entry points (`poseidon2_perm`, `poseidon2_hash_rows`, `poseidon2_hash_two`)
-that share one launch count; ops/poseidon.py sends CUDA tensors to them and
-keeps the plain versions, and every Merkle commit of the chunk STARKs and of
-the AIR prover runs through them.  Each source notes what bounds it on the H100 and what its design
+scans).  E is Poseidon2 over Goldilocks on a lazy-reduction field core, one
+thread per state, with four entry points (`poseidon2_perm`,
+`poseidon2_hash_rows`, `poseidon2_hash_two`, and `poseidon2_merkle_levels`,
+a whole Merkle tree in one launch) that share one launch count;
+ops/poseidon.py sends CUDA tensors to them and keeps the plain versions, and
+every Merkle commit of the chunk STARKs and of the AIR prover runs through
+them.  Each source notes what bounds it on the H100 and what its design
 does about it.  The sources are compiled with nvcc for sm_90a (one nvcc per
 source, all started together) and linked into one shared library with a
 plain C interface, at first use, into `_build/<hash of the sources>/` next
@@ -179,6 +181,7 @@ SIGNATURES = {
     "poseidon2_perm": [_VP, _VP, _LL, _VP, _VP],
     "poseidon2_hash_rows": [_VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP],
     "poseidon2_hash_two": [_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP],
+    "poseidon2_merkle_levels": [_VP, _LL, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
 }
 
 
@@ -511,64 +514,89 @@ def point_madd_plain(ctx, p, q_aff):
 _poseidon_consts = None  # (host word array kept alive, its address)
 
 
-def _poseidon2_consts():
-    """The instance's constants as csrc/poseidon2_gl.cu's `Consts`: the 8 full
-    rounds' additive constants, lane 0's of the 22 partial rounds, the internal
-    diagonal; 130 host words, made once."""
+def poseidon2_const_words() -> list[int]:
+    """The instance's constants as csrc/poseidon2_gl.cuh's `Consts`, in the
+    order the schedule adds them, each round's riding on the linear layer
+    before it: round 0's; after each full round the next round's (lane 0's
+    of the first partial round after the fourth, zeros after the last);
+    lane 0's of partial rounds 2..22; the full round after the partial
+    rounds; the internal diagonal.  153 words."""
+    from . import poseidon
+
+    rc = poseidon.round_constants()
+    full = [r for r in range(poseidon.N_ROUNDS) if poseidon._is_full_round(r)]
+    partial = [r for r in range(poseidon.N_ROUNDS) if r not in full]
+    width = poseidon.WIDTH
+    words = list(rc[full[0]])
+    for r in full:
+        if r + 1 in full:
+            words += rc[r + 1]
+        elif r + 1 in partial:
+            words += [rc[r + 1][0]] + [0] * (width - 1)
+        else:
+            words += [0] * width
+    words += [rc[r][0] for r in partial[1:]]
+    words += rc[partial[-1] + 1]
+    return words + poseidon.internal_diag()
+
+
+def _poseidon2_consts() -> int:
+    """The address of `poseidon2_const_words()` as host words, made once."""
     global _poseidon_consts
     if _poseidon_consts is None:
-        from . import poseidon
-
-        rc = poseidon.round_constants()
-        full = [r for r in range(poseidon.N_ROUNDS) if poseidon._is_full_round(r)]
-        words = [v for r in full for v in rc[r]]
-        words += [rc[r][0] for r in range(poseidon.N_ROUNDS) if r not in full]
-        words += poseidon.internal_diag()
+        words = poseidon2_const_words()
         arr = (ctypes.c_uint64 * len(words))(*words)
-        _poseidon_consts = (arr, ctypes.cast(arr, ctypes.c_void_p))
+        _poseidon_consts = (arr, ctypes.cast(arr, ctypes.c_void_p).value)
     return _poseidon_consts[1]
 
 
-def _launch_poseidon2(entry: str, device, *args) -> None:
-    """Launch `ezt_poseidon2_<entry>` on the current stream of `device` and
-    count it under "poseidon2"; raise if the card refuses the launch."""
+def _launch_poseidon2(entry: str, index: int, *args) -> None:
+    """Launch `ezt_poseidon2_<entry>` on the current stream of CUDA device
+    `index` and count it under "poseidon2"; raise if the card refuses the
+    launch.  The device and the raw stream come from PyTorch's C accessors
+    (what its own compiled kernels use): a plain call each, where the
+    torch.cuda functions build Python objects."""
     if not _fns:
         _load()
     fn = _fns["poseidon2_" + entry]
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, _poseidon2_consts(), torch.cuda.current_stream().cuda_stream)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, _poseidon2_consts(), torch._C._cuda_getCurrentRawStream(index))
     else:
-        with torch.cuda.device(device):
-            rc = fn(*args, _poseidon2_consts(), torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(index):
+            rc = fn(*args, _poseidon2_consts(), torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"poseidon2_{entry}: kernel launch failed with cudaError {rc}")
     LAUNCHES["poseidon2"] += 1
 
 
-def _check_words(name: str, t: torch.Tensor, width: int | None = None) -> None:
-    """A CUDA int64 tensor of (..., width) field words, or raise."""
-    if not t.is_cuda:
+def _check_words(name: str, t: torch.Tensor, width: int | None = None) -> int:
+    """A CUDA int64 tensor of (..., width) field words, or raise; returns its
+    device index."""
+    index = t.get_device()
+    if index < 0:
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype is not torch.int64:
         raise TypeError(f"{name}: expected int64 field words, got {t.dtype}")
-    if t.dim() < 1 or (width is not None and t.shape[-1] != width):
-        raise ValueError(f"{name}: expected (..., {width or 'k'}) words, got {tuple(t.shape)}")
+    shape = t.shape
+    if not shape or (width is not None and shape[-1] != width):
+        raise ValueError(f"{name}: expected (..., {width or 'k'}) words, got {tuple(shape)}")
+    return index
 
 
 def _digest_rows(t: torch.Tensor) -> torch.Tensor:
     """(..., 4) digests as (n, 4) rows of contiguous words: a view where the
     strides allow one (every other row of a Merkle level), else a copy."""
-    rows = t.reshape(-1, 4)
+    rows = t.reshape(-1, 4) if t.dim() != 2 else t
     return rows if rows.stride(1) == 1 else rows.contiguous()
 
 
 def poseidon2_perm(state: torch.Tensor) -> torch.Tensor:
     """Kernel E on (..., 12) canonical states of a CUDA int64 tensor."""
-    _check_words("poseidon2_perm", state, 12)
+    index = _check_words("poseidon2_perm", state, 12)
     rows = state.reshape(-1, 12).contiguous()
     out = torch.empty_like(rows)
     if rows.shape[0]:
-        _launch_poseidon2("perm", rows.device, rows.data_ptr(), out.data_ptr(), rows.shape[0])
+        _launch_poseidon2("perm", index, rows.data_ptr(), out.data_ptr(), rows.shape[0])
     return out.reshape(state.shape)
 
 
@@ -576,32 +604,64 @@ def poseidon2_hash_rows(elements: torch.Tensor) -> torch.Tensor:
     """Kernel E's sponge over the last axis: (..., k) -> (..., 4) digests on
     a CUDA int64 tensor of canonical words, any k >= 0.  A 2-D input is read
     through its strides, so a transposed (column-major) matrix is not copied."""
-    _check_words("poseidon2_hash_rows", elements)
+    index = _check_words("poseidon2_hash_rows", elements)
     k = elements.shape[-1]
     rows = elements if elements.dim() == 2 else elements.reshape(math.prod(elements.shape[:-1]), k)
-    out = torch.empty((rows.shape[0], 4), dtype=torch.int64, device=rows.device)
-    if rows.shape[0]:
-        _launch_poseidon2("hash_rows", rows.device, rows.data_ptr(), out.data_ptr(),
-                          rows.shape[0], k, rows.stride(0), rows.stride(1))
-    return out.reshape(elements.shape[:-1] + (4,))
+    n = rows.shape[0]
+    out = rows.new_empty((n, 4))
+    if n:
+        row_stride, col_stride = rows.stride()
+        _launch_poseidon2("hash_rows", index, rows.data_ptr(), out.data_ptr(), n, k,
+                          row_stride, col_stride)
+    return out if elements.dim() == 2 else out.reshape(elements.shape[:-1] + (4,))
 
 
 def poseidon2_hash_two(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Kernel E's 2-to-1 compression: (..., 4) x (..., 4) -> (..., 4) on CUDA
     int64 tensors of canonical words.  Strided digests (every other row of a
     Merkle level) are read where they lie."""
-    _check_words("poseidon2_hash_two", left, 4)
-    _check_words("poseidon2_hash_two", right, 4)
-    if left.shape != right.shape or left.device != right.device:
+    index = _check_words("poseidon2_hash_two", left, 4)
+    if _check_words("poseidon2_hash_two", right, 4) != index or left.shape != right.shape:
         raise ValueError("poseidon2_hash_two: operands must share shape and device, got "
                          f"{tuple(left.shape)} on {left.device} and {tuple(right.shape)} "
                          f"on {right.device}")
     lrows, rrows = _digest_rows(left), _digest_rows(right)
-    out = torch.empty((lrows.shape[0], 4), dtype=torch.int64, device=lrows.device)
-    if lrows.shape[0]:
-        _launch_poseidon2("hash_two", lrows.device, lrows.data_ptr(), lrows.stride(0),
-                          rrows.data_ptr(), rrows.stride(0), out.data_ptr(), lrows.shape[0])
-    return out.reshape(left.shape)
+    n = lrows.shape[0]
+    out = lrows.new_empty((n, 4))
+    if n:
+        _launch_poseidon2("hash_two", index, lrows.data_ptr(), lrows.stride(0),
+                          rrows.data_ptr(), rrows.stride(0), out.data_ptr(), n)
+    return out if left.dim() == 2 else out.reshape(left.shape)
+
+
+def poseidon2_merkle_levels(level: torch.Tensor) -> list[torch.Tensor]:
+    """Kernel E's tree entry: every Merkle level above (..., n, 4) digests
+    of a CUDA int64 tensor (n a power of two), a whole tree in one launch.
+    Returns [(..., n / 2, 4), ..., (..., 1, 4)], each contiguous, and no
+    level (no launch) for n = 1.  Digests must be contiguous words; the rows
+    and the leading axes may have any strides."""
+    index = _check_words("poseidon2_merkle_levels", level, 4)
+    shape = level.shape
+    if len(shape) < 2:
+        raise ValueError(f"poseidon2_merkle_levels: expected (..., n, 4) digests, got {tuple(shape)}")
+    n = shape[-2]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"poseidon2_merkle_levels: {n} digests is not a power of two")
+    levels = n.bit_length() - 1
+    rows = level.reshape(-1, n, 4) if len(shape) != 3 else level
+    if rows.stride(2) != 1:
+        rows = rows.contiguous()
+    trees = rows.shape[0]
+    outs = [torch.empty(shape[:-2] + (n >> j, 4), dtype=torch.int64, device=level.device)
+            for j in range(1, levels + 1)]
+    if trees and levels:
+        per_tree = max(1, n >> 9)  # a ticket per pair of 256-node groups and level
+        tickets = torch.zeros(trees * per_tree, dtype=torch.int32, device=level.device)
+        ptrs = (ctypes.c_void_p * levels)(*(t.data_ptr() for t in outs))
+        _launch_poseidon2("merkle_levels", index, rows.data_ptr(), rows.stride(0),
+                          rows.stride(1), n, trees, ctypes.cast(ptrs, ctypes.c_void_p),
+                          tickets.data_ptr(), per_tree)
+    return outs
 
 
 # ---------------------------------------------------------------------------

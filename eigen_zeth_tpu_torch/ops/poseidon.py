@@ -9,12 +9,13 @@ SHA-256 tags, M_E = circ(2·M4, M4, M4), M_I = 1 + diag(mu)), with
     round constants and the internal diagonal.  It works lane-major on a
     (12, N) state, so every field op runs over the whole batch at once.
 
-`perm`, `hash_elements` and `hash_two` send a CUDA tensor to the hand-written
-kernel (ops/kernels.py, csrc/poseidon2_gl.cu: the whole permutation, or the
-whole sponge of a row, in one thread's registers) and a CPU tensor to the
-PyTorch code here, the kernel's plain version (`perm_plain`,
-`hash_elements_plain`, `hash_two_plain`).  Nothing falls back: a CUDA tensor
-launches the kernel or raises.
+`perm`, `hash_elements`, `hash_two` and `merkle_levels` send a CUDA tensor
+to the hand-written kernel (ops/kernels.py, csrc/poseidon2_gl.cu: the whole
+permutation, or the whole sponge of a row, in one thread's registers; all
+the levels of a Merkle tree in one launch) and a CPU tensor to the PyTorch code
+here, the kernel's plain version (`perm_plain`, `hash_elements_plain`,
+`hash_two_plain`, `merkle_levels_plain`).  Nothing falls back: a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from . import goldilocks as gl
+from . import kernels
 
 WIDTH = 12
 RATE = 8
@@ -249,8 +251,6 @@ def perm_plain(state: torch.Tensor) -> torch.Tensor:
 def perm(state: torch.Tensor) -> torch.Tensor:
     """Poseidon2 permutation of (..., 12) int64 states on their device."""
     if state.is_cuda:
-        from . import kernels
-
         return kernels.poseidon2_perm(state)
     return perm_plain(state)
 
@@ -259,8 +259,6 @@ def hash_elements(elements: torch.Tensor) -> torch.Tensor:
     """Device sponge over the last axis: (..., k) -> (..., 4) digests,
     row-identical to hash_elements_host."""
     if elements.is_cuda:
-        from . import kernels
-
         return kernels.poseidon2_hash_rows(elements)
     return hash_elements_plain(elements)
 
@@ -283,8 +281,6 @@ def hash_elements_plain(elements: torch.Tensor) -> torch.Tensor:
 def hash_two(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Device 2-to-1 compression: (..., 4) x (..., 4) -> (..., 4)."""
     if left.is_cuda or right.is_cuda:
-        from . import kernels
-
         return kernels.poseidon2_hash_two(left, right)
     return hash_two_plain(left, right)
 
@@ -293,3 +289,25 @@ def hash_two_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel's `hash_two` entry."""
     pad = gl.zeros(left.shape[:-1] + (WIDTH - 2 * DIGEST,), left.device)
     return perm_plain(torch.cat([left, right, pad], dim=-1))[..., :DIGEST]
+
+
+def merkle_levels(level: torch.Tensor) -> list[torch.Tensor]:
+    """Every Merkle level above (..., n, 4) digests, n a power of two:
+    [(..., n / 2, 4), ..., root (..., 1, 4)], none for n = 1.  On a CUDA
+    tensor one launch of kernel E's tree entry."""
+    if level.is_cuda:
+        return kernels.poseidon2_merkle_levels(level)
+    return merkle_levels_plain(level)
+
+
+def merkle_levels_plain(level: torch.Tensor) -> list[torch.Tensor]:
+    """Plain PyTorch version of the kernel's `merkle_levels` entry: one
+    `hash_two_plain` per level, even digests with odd."""
+    n = level.shape[-2]
+    assert n >= 1 and n & (n - 1) == 0
+    out = []
+    cur = level
+    while cur.shape[-2] > 1:
+        cur = hash_two_plain(cur[..., 0::2, :], cur[..., 1::2, :])
+        out.append(cur)
+    return out

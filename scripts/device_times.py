@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of kernels A, B, C and D of the port, for one checkout or
+"""Device times of kernels A, B, C, D and E of the port, for one checkout or
 several in turn, on one NVIDIA GPU.
 
     python3 scripts/device_times.py [ROOT ...]
@@ -11,8 +11,16 @@ Every root runs in a process of its own, builds its kernels from its own
 csrc/, and prints one JSON line: per kernel the time of one launch at a batch
 where the card's work outlasts the host's enqueue ((16, 2^20) random canonical
 Fq elements for A, (16, 2^18) for the point kernels; the operands exceed the
-L2 cache), CUDA events around 20 back-to-back launches, median of 3.  Only
-the calls that every version of the port has are used: the unmasked wrappers.
+L2 cache), CUDA events around 20 back-to-back launches, median of 3.
+Kernel E (Poseidon2 over Goldilocks) through the calls its users make:
+`poseidon.perm` on 2^18 states, `poseidon.hash_elements` on the
+attestation's (2^21, 216) rows, column-major as the AIR prover hands them
+over, `poseidon.hash_two` on a Merkle level of 2^20 strided pairs,
+`merkle.commit_digests` over 2^21 leaves (a whole tree, every launch it
+makes), with random canonical words; and the host's cost of one
+`hash_two` on 1,024 pairs (host clock around 200 calls).  Only the calls
+that every version of the port has are used: the unmasked wrappers and the
+Poseidon2 and Merkle functions.
 """
 
 from __future__ import annotations
@@ -21,16 +29,19 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
+E_PERMS, E_ROWS, E_COLS = 1 << 18, 1 << 21, 216
 
 
 def measure(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
-    from eigen_zeth_tpu_torch.ops import bn254, kernels
+    from eigen_zeth_tpu_torch.models import merkle
+    from eigen_zeth_tpu_torch.ops import bn254, kernels, poseidon
 
     if not torch.cuda.is_available():
         raise SystemExit("device_times: needs a CUDA device")
@@ -41,6 +52,19 @@ def measure(root: str) -> dict:
         t = torch.randint(0, 1 << 16, (16, n), generator=gen, device=dev, dtype=torch.int32)
         t[15] %= bn254.Q >> 240
         return t
+
+    def words(*shape):  # canonical Goldilocks words: below 2^62 < p
+        return torch.randint(0, 1 << 62, shape, generator=gen, device=dev, dtype=torch.int64)
+
+    def host_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        secs = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return secs / reps * 1e6
 
     def time_ms(fn, reps=20, groups=3):
         fn()
@@ -61,13 +85,29 @@ def measure(root: str) -> dict:
     p, q = tuple(limbs(BIG_POINT) for _ in range(3)), tuple(limbs(BIG_POINT) for _ in range(3))
     sgn, flg = (torch.randint(0, 2, (BIG_POINT,), generator=gen, device=dev, dtype=torch.int32)
                 for _ in range(2))
-    return {
+    out = {
         "root": root,
         "mont_mul": time_ms(lambda: kernels.mont_mul(ctx, a, b)),
         "point_add": time_ms(lambda: kernels.point_add(ctx, p, q)),
         "point_scan_step": time_ms(lambda: kernels.point_scan_step(ctx, p, q[:2], sgn, flg)),
         "point_madd": time_ms(lambda: kernels.point_madd(ctx, p, q[:2])),
     }
+    del a, b, p, q, sgn, flg
+    states = words(E_PERMS, 12)
+    out["poseidon2_perm"] = time_ms(lambda: poseidon.perm(states))
+    del states
+    wide = words(E_COLS, E_ROWS).T  # column-major rows
+    out["poseidon2_hash_rows_wide"] = time_ms(lambda: poseidon.hash_elements(wide), reps=3)
+    del wide
+    level = words(E_ROWS, 4)
+    out["poseidon2_hash_two"] = time_ms(lambda: poseidon.hash_two(level[0::2], level[1::2]))
+    before = kernels.LAUNCHES["poseidon2"]
+    merkle.commit_digests(level)
+    out["poseidon2_tree_launches"] = kernels.LAUNCHES["poseidon2"] - before
+    out["poseidon2_tree"] = time_ms(lambda: merkle.commit_digests(level), reps=5)
+    small = level[:2048]
+    out["poseidon2_host_us"] = host_us(lambda: poseidon.hash_two(small[0::2], small[1::2]))
+    return out
 
 
 def main() -> int:

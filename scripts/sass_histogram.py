@@ -43,7 +43,7 @@ def main() -> int:
         if m and kernel:
             counts[kernel][m.group(1)] += 1
     for kernel, ops in counts.items():
-        print(kernel)
+        print(f"{kernel}  ({sum(ops.values())} instructions)")
         for op, k in ops.most_common(top):
             print(f"   {k:6d} {op}")
     return 0

@@ -419,17 +419,75 @@ def test_poseidon2_hash_two_kernel_and_merkle_tree_match_plain():
     host = poseidon.hash_two_host([int(v) for v in gl.to_int(left[0, 0])],
                                   [int(v) for v in gl.to_int(right[0, 0])])
     assert [int(v) for v in gl.to_int(got[0, 0])] == host
-    # a whole tree over wide rows: 1 launch for the leaves, 1 per level
+    # a whole tree over wide rows: 1 launch for the leaves, 1 for the 8 levels
     rows = _gl_words(np.random.default_rng(13), (256, 13), dev)
     before = kernels.LAUNCHES["poseidon2"]
     tree = merkle.commit_tree(rows)
-    assert kernels.LAUNCHES["poseidon2"] == before + 1 + 8
+    assert kernels.LAUNCHES["poseidon2"] == before + 1 + 1
     cpu_tree = merkle.commit_tree(rows.cpu())
     assert tree.root() == cpu_tree.root() and tree.open_many([0, 77, 255]) == cpu_tree.open_many([0, 77, 255])
     with pytest.raises(TypeError):
         poseidon.hash_two(left.to(torch.int32), right.to(torch.int32))
     with pytest.raises(ValueError):
         poseidon.hash_two(left, right.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,trees", [(2, 1), (8, 3), (512, 1), (2048, 2), (1 << 12, 9),
+                                     (1 << 14, 1), (1 << 15, 2)])
+def test_poseidon2_merkle_levels_kernel_matches_plain(n, trees):
+    from eigen_zeth_tpu_torch.models import merkle
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon
+
+    dev = _cuda()
+    digests = _gl_words(np.random.default_rng(20 + n.bit_length()), (trees, 2 * n, 4), dev)
+    digests[0, 0], digests[0, 2] = 0, gl.as_i64(gl.P - 1)
+    for level in (digests[:, :n], digests[:, 0::2]):  # contiguous rows, strided rows
+        before = kernels.LAUNCHES["poseidon2"]
+        got = poseidon.merkle_levels(level)
+        assert kernels.LAUNCHES["poseidon2"] == before + 1
+        want = poseidon.merkle_levels_plain(level)
+        assert len(got) == n.bit_length() - 1 and got[-1].shape == (trees, 1, 4)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.is_contiguous() and torch.equal(g, w)
+    top = got[0][0, 0]  # one node against the host compression
+    host = poseidon.hash_two_host([int(v) for v in gl.to_int(digests[0, 0])],
+                                  [int(v) for v in gl.to_int(digests[0, 2])])
+    assert [int(v) for v in gl.to_int(top)] == host
+    if trees == 1:  # a 2-D level, and the commit against the CPU's
+        assert torch.equal(poseidon.merkle_levels(level[0])[-1], got[-1][0])
+        assert all(torch.equal(a.cpu(), b) for a, b in
+                   zip(merkle.commit_digests(level), merkle.commit_digests(level.cpu())))
+    with pytest.raises(ValueError):
+        poseidon.merkle_levels(digests[:, : n + 1])  # not a power of two
+    with pytest.raises(TypeError):
+        poseidon.merkle_levels(level.to(torch.int32))
+
+
+@pytest.mark.gpu
+def test_poseidon2_lazy_bound_states_match_plain_and_host():
+    """States aimed at the lazy core's bounds: lanes 0, 1, p - 1, p - 2^32,
+    2^32 - 1, 2^32 and states whose partial-round products mu_i·s_i sit near
+    their maximum (every lane p - 1)."""
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon
+
+    dev = _cuda()
+    P = gl.P
+    edge = [0, 1, P - 1, P - (1 << 32), (1 << 32) - 1, 1 << 32]
+    rng = np.random.default_rng(21)
+    rows = [[v] * 12 for v in edge] + [list(rng.choice(edge, 12)) for _ in range(250)]
+    states = gl.from_int(np.asarray(rows, dtype=np.uint64), dev)
+    got = poseidon.perm(states)
+    assert torch.equal(got, poseidon.perm_plain(states))
+    for i in range(0, len(rows), 7):
+        assert [int(v) for v in gl.to_int(got[i])] == poseidon.perm_host([int(v) for v in rows[i]])
+    # the same words absorbed by the sponge and compressed as digests
+    flat = states.reshape(-1, 24)
+    assert torch.equal(poseidon.hash_elements(flat), poseidon.hash_elements_plain(flat))
+    assert torch.equal(poseidon.hash_two(states[:, :4], states[:, 4:8]),
+                       poseidon.hash_two_plain(states[:, :4], states[:, 4:8]))
 
 
 @pytest.mark.gpu
