@@ -19,8 +19,11 @@ the entry points a user calls, and checks every stage:
      them over, column-major, and over FRI's 2^20 pairs, a Merkle level of
      2^20 strided digest pairs, 2^18 bare permutations with states aimed at
      the lazy field core's bounds, a whole 2^21-leaf tree in one launch and
-     9 batched trees of 2^14 leaves), with edge cases checked against host
-     arithmetic.  Three times per kernel: at the path's shape
+     9 batched trees of 2^14 leaves; kernel F, Poseidon2 over BN254 Fr,
+     through its three entry points: the grind search's 2^14 states with
+     edge lanes, the leaf sponge over the wrap attestation's 2^23 rows of
+     216 columns, column-major, and its whole 2^23-leaf tree in one launch),
+     with edge cases checked against host arithmetic.  Three times per kernel: at the path's shape
      (CUDA events around runs of back-to-back launches, median), the
      host's cost of a launch (host clock around 200 launches, nothing
      synchronised inside), and the device time at a batch where the card's
@@ -29,7 +32,8 @@ the entry points a user calls, and checks every stage:
      equals sign select, kernel D, restart select
   4. proves the two tiny golden configurations on the card (recursion off
      and on) and checks their sha256 digests against
-     tests/data/torch_slice_golden.json
+     tests/data/torch_slice_golden.json; makes the CRS of the tiny STARK
+     wrap and proves it, against tests/data/torch_stark_wrap_golden.json
   5. the batch proof, `BatchProver(wrap="mimc", recursion=False)`: 7,200
      synthetic blocks (9 chunks of 4,096-row traces), default StarkParams,
      the MiMC Groth16 wrap; checks every chunk proof with verify_chunk and
@@ -54,8 +58,20 @@ the entry points a user calls, and checks every stage:
      aggregated digest, the final proof with groth16.verify, and that
      kernel E was launched in steps 2 and 3, at most 60 times an
      attestation
+ 10. the node's default, sound final wrap at the node's configuration:
+     `BatchProver(recursion=True, wrap="stark")`, the production chunk shape
+     and wrap profile (11 queries, 12 grinding bits, blowup 32, two
+     leaves), 1,600 blocks (2 chunks).  `ensure_wrap_crs` first, into a
+     scratch directory, timed by stage; then the four steps, step 3 by
+     stage, step 4 by part; checks every chunk proof, every wrap
+     attestation with verify_attestation_wrap under the pinned profile, the
+     public input against the statement hash of the headers,
+     groth16.verify under the pinned VK, a forged pi_c rejected, a
+     corrupted attestation giving COMPLETED_ERROR, the device fixed-base
+     against the host's on 2^14 G1 and 2^10 G2 scalars, and kernel F
+     launched in step 3 (at most F_STEP3_MOST times)
 
-Before each of the paths 5-9 the launch counts are set to 0, and read just
+Before each of the paths 5-10 the launch counts are set to 0, and read just
 after: every kernel of that path must have been launched, and Montgomery
 multiplies must stay few (a power is one launch, not one per squaring).
 It prints a JSON line with each kernel's numbers, then, as its last line,
@@ -151,6 +167,26 @@ MADS_PER_PERM = GL_MULS_PER_PERM * MADS_PER_GL_MUL + GL_SQRS_PER_PERM * MADS_PER
 # the wide multiply-add rate that the probe measures in this run (phase_build)
 PROBED_MADS_PER_S = {"rate": INT32_MADS_PER_S}
 AGGREGATOR = "0x" + "11" * 20
+# Kernel F, Poseidon2 over BN254 Fr: 8 full rounds x 12 S-boxes and 68
+# partial rounds x 1, each S-box x^5 = two Montgomery squarings and one
+# product, and 68 x 12 products by the internal diagonal: 980 products of 136
+# multiply-adds and 328 squarings of 108 (bn254_field.cuh), the least the
+# permutation needs.  The conversions into and out of Montgomery form at the
+# kernel's boundary are not counted.
+FR_MULS_PER_PERM = 8 * 12 + 68 * (1 + 12)
+FR_SQRS_PER_PERM = 2 * (8 * 12 + 68)
+MADS_PER_PERM_FR = FR_MULS_PER_PERM * MADS_PER_MONT_MUL + FR_SQRS_PER_PERM * MADS_PER_MONT_SQR
+# the wrap-profile attestation at the node's profile: the verifier AIR's
+# 2^18 x 216 trace at blowup 32, LDE 2^23 rows, 72 packed Fr elements a row
+WRAP_ROWS = 1 << 23
+WRAP_PERMS_PER_ROW = -(-(ATT_COLS // 3) // 11)  # 72 packed elements at rate 11: 7
+F_PLAIN_ROWS = 1 << 10  # rows the plain version hashes
+F_PLAIN_LEAVES = 1 << 10  # leaves of the subtree the plain version commits
+F_GRIND_BATCH = 1 << 14  # states of one batch of the card's grind search
+F_BIG_PERM = 1 << 18
+F_STEP3_MOST = 100  # kernel F launches step 3 may take (2 attestations)
+STARK_WRAP_BLOCKS = 1600  # 2 chunks: one aggregation pair, the final circuit's two leaves
+STARK_GOLDEN = ROOT / "tests" / "data" / "torch_stark_wrap_golden.json"
 
 
 def log(msg: str) -> None:
@@ -274,7 +310,25 @@ def _check(result) -> None:
         raise AssertionError(f"{type(result).__name__}: {result.error_message}")
 
 
-def drive(prover, blocks, step_launches: dict | None = None):
+class scratch_dir:
+    """A fresh directory under the checkout's tmp/ (git ignores it), removed
+    on exit: where the STARK wrap's CRS is made and read back."""
+
+    def __enter__(self) -> str:
+        import tempfile
+
+        (ROOT / "tmp").mkdir(exist_ok=True)
+        self.path = tempfile.mkdtemp(prefix="crs-", dir=ROOT / "tmp")
+        return self.path
+
+    def __exit__(self, *exc):
+        import shutil
+
+        shutil.rmtree(self.path, ignore_errors=True)
+        return False
+
+
+def drive(prover, blocks, step_launches: dict | None = None, aggregator: str = AGGREGATOR):
     """The four steps, in the order the node's state machine drives them;
     step 3 aggregates the first and last chunk proofs.  Every step is
     synchronised and timed; `step_launches`, where given, receives each
@@ -298,7 +352,7 @@ def drive(prover, blocks, step_launches: dict | None = None):
     r3 = run("gen_aggregated_proof", lambda: prover.gen_aggregated_proof(
         "smoke", r2.chunk_proofs[0].proof, r2.chunk_proofs[-1].proof))
     r4 = run("gen_final_proof", lambda: prover.gen_final_proof(
-        "smoke", r3.result_string, "BN128", AGGREGATOR))
+        "smoke", r3.result_string, "BN128", aggregator))
     return r1, r2, r3, r4, times
 
 
@@ -452,6 +506,7 @@ def phase_kernels(device) -> dict:
             f"{r['device_bound_by']} ({r['device_probed_bound_ms']:.4f} ms by "
             f"{r['device_probed_bound_by']} at the probed multiply-add rate)")
     results["poseidon2"] = poseidon2
+    results["poseidon_fr"] = _phase_poseidon_fr_kernel(device, rng)
     return results
 
 
@@ -604,6 +659,155 @@ def _phase_poseidon_kernel(device, rng) -> dict:
         "device_bound_ms": main["bound_ms"], "device_bound_by": main["bound_by"],
         "device_probed_bound_ms": main["probed_bound_ms"],
         "device_probed_bound_by": main["probed_bound_by"],
+        "entries": entries,
+    }
+
+
+def poseidon_fr_bound(rows: int, k_in: int, k_out: int, perms_per_row: int,
+                      mads_per_s: float = INT32_MADS_PER_S) -> dict:
+    """The least time the card could take for one launch of kernel F over
+    `rows` rows: k_in words read and k_out written per row against
+    perms_per_row permutations of MADS_PER_PERM_FR multiply-adds."""
+    by_bytes = rows * (k_in + k_out) * 8 / HBM_BYTES_PER_S * 1e3
+    by_ops = rows * perms_per_row * MADS_PER_PERM_FR / mads_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _phase_poseidon_fr_kernel(device, rng) -> dict:
+    """Kernel F's three entry points against their plain versions, bit for
+    bit, at the shapes the wrap-profile attestation gives them, with edge
+    states and nodes against the host permutation, sponge and compression.
+    Times: `ms` at the path's shape, `device_ms` at a large batch."""
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    R, P = pfr.R, gl.P
+    err = 0
+
+    def same(what, got, ref) -> None:
+        nonlocal err
+        err = max(err, _compare(f"poseidon_fr {what}", (got,), (ref,)))
+
+    def fr_ints(n):
+        return [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+
+    def timed_plain(fn):
+        """(fn(), its time in ms): the plain version is timed on the call
+        that checks the kernel (a call of it costs seconds of launches)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def entry(rows, k_in, k_out, perms, ms, plain_ms, plain_rows, big_rows, big_ms):
+        out = {"rows": rows, "ms": ms, "plain_ms": plain_ms, "plain_rows": plain_rows,
+               **poseidon_fr_bound(rows, k_in, k_out, perms),
+               "device_rows": big_rows, "device_ms": big_ms}
+        for tag, r in (("device_", big_rows), ("device_probed_", big_rows), ("probed_", rows)):
+            rate = PROBED_MADS_PER_S["rate"] if "probed" in tag else INT32_MADS_PER_S
+            b = poseidon_fr_bound(r, k_in, k_out, perms, rate)
+            out[tag + "bound_ms"], out[tag + "bound_by"] = b["bound_ms"], b["bound_by"]
+        return out
+
+    # perm: the grind search's batch, with edge states: every lane 0, 1,
+    # r - 1, 2^64 - 1, 2^192 - 1, and mixes of them
+    edges = [0, 1, R - 1, (1 << 64) - 1, (1 << 192) - 1]
+    states = [[e] * 12 for e in edges] + [list(rng.choice(np.array(edges, dtype=object), 12))
+                                          for _ in range(27)]
+    states += [fr_ints(12) for _ in range(F_GRIND_BATCH - len(states))]
+    words = pfr.words_from_ints(states, device)
+    got = pfr.perm_device(words)
+    plain, perm_plain_ms = timed_plain(lambda: pfr.perm_fr_plain(words))
+    same("perm", got, plain)
+    for i in range(0, 32, 3):
+        if pfr.ints_from_words(got[i]) != pfr.perm_host(states[i]):
+            raise AssertionError(f"poseidon_fr perm differs from the host permutation (state {i})")
+    big = pfr.words_from_ints([fr_ints(12) for _ in range(1024)], device).repeat(F_BIG_PERM // 1024, 1, 1)
+    entries = {"perm": entry(F_GRIND_BATCH, 48, 48, 1,
+                             cuda_time_ms(lambda: kernels.poseidon_fr_perm(words), 20),
+                             perm_plain_ms, F_GRIND_BATCH,
+                             F_BIG_PERM, cuda_time_ms(lambda: kernels.poseidon_fr_perm(big), 5))}
+    host_us = host_us_per_launch(lambda: kernels.poseidon_fr_perm(words[:256]))
+    del big
+
+    # hash_rows, edge rows: lengths 1..13, 33, 34 and 216, values 0, p - 1, random
+    for k in (*range(1, 14), 33, 34, ATT_COLS):
+        rows = _random_gl(rng, (5, k), device)
+        rows[0], rows[1] = 0, gl.as_i64(P - 1)
+        got = kernels.poseidon_fr_hash_rows(rows)
+        same(f"hash_rows (k = {k})", got, pfr.hash_rows_fr_plain(rows))
+        for i in (0, 1, 4):
+            row = [int(v) for v in gl.to_int(rows[i])]
+            if pfr.ints_from_words(got[i])[0] != pfr.hash_elements_host(pfr.pack_gl_host(row)):
+                raise AssertionError(f"poseidon_fr hash_rows differs from the host sponge (k = {k})")
+
+    # hash_rows at the wrap attestation's shape: the (216, 2^23) LDE read as
+    # rows through its strides; the plain version on the first F_PLAIN_ROWS
+    # rows, the host sponge on rows at the far end
+    gen = torch.Generator(device=device).manual_seed(7)
+    cols = torch.randint(0, 1 << 62, (ATT_COLS, WRAP_ROWS), generator=gen, device=device)
+    cols[:, :2] = gl.as_i64(P - 1)  # canonical words, the largest ones in the first rows
+    wide = cols.T
+    digests = kernels.poseidon_fr_hash_rows(wide)
+    head = slice(0, F_PLAIN_ROWS)
+    plain, rows_plain_ms = timed_plain(lambda: pfr.hash_rows_fr_plain(wide[head]))
+    same("hash_rows on wide rows", digests[head], plain)
+    last = [WRAP_ROWS - 1, WRAP_ROWS - F_PLAIN_ROWS]  # the far end, against the host sponge
+    if pfr.ints_from_words(digests[last]) != [pfr.hash_elements_host(pfr.pack_gl_host(
+            [int(v) for v in gl.to_int(wide[i])])) for i in last]:
+        raise AssertionError("poseidon_fr hash_rows differs from the host sponge at the far end")
+    wide_ms = cuda_time_ms(lambda: kernels.poseidon_fr_hash_rows(wide), 1)
+    entries["hash_rows"] = entry(
+        WRAP_ROWS, ATT_COLS, 4, WRAP_PERMS_PER_ROW, wide_ms,
+        rows_plain_ms, F_PLAIN_ROWS,
+        WRAP_ROWS, wide_ms)
+    del cols, wide
+
+    # merkle_levels: the trace tree over 2^23 leaf digests in one launch, every
+    # level of a subtree of F_PLAIN_LEAVES leaves against the plain version,
+    # nodes against the host compression
+    before = kernels.LAUNCHES["poseidon_fr"]
+    tree = kernels.poseidon_fr_merkle_levels(digests)
+    if kernels.LAUNCHES["poseidon_fr"] - before != 1:
+        raise AssertionError("a 2^23-leaf Fr tree took more than one launch of kernel F")
+    small = digests[:F_PLAIN_LEAVES]
+    plain, tree_plain_ms = timed_plain(lambda: pfr.merkle_levels_fr_plain(small))
+    for depth, (got, ref) in enumerate(zip(kernels.poseidon_fr_merkle_levels(small), plain), 1):
+        same(f"tree level {depth}", got, ref)
+        if not torch.equal(got, tree[depth - 1][: got.shape[0]]):
+            raise AssertionError(f"the 2^23-leaf tree's level {depth} differs from its subtree's")
+    top = WRAP_ROWS.bit_length() - 1
+    levels = [digests] + tree
+    for depth, i in ((1, 0), (1, WRAP_ROWS // 2 - 1), (top // 2, 3), (top, 0)):
+        kids = pfr.ints_from_words(levels[depth - 1][2 * i : 2 * i + 2])
+        if pfr.ints_from_words(levels[depth][i : i + 1]) != [pfr.hash_two_host(*kids)]:
+            raise AssertionError(f"Fr tree node {i} of level {depth} differs from the host")
+    tree_ms = cuda_time_ms(lambda: kernels.poseidon_fr_merkle_levels(digests), 1)
+    entries["merkle_levels"] = entry(
+        WRAP_ROWS - 1, 4, 4, 1, tree_ms,
+        tree_plain_ms, F_PLAIN_LEAVES - 1,
+        WRAP_ROWS - 1, tree_ms)
+    del digests, tree, levels
+
+    for name, e in entries.items():
+        log(f"[kernels] poseidon_fr {name}: bit-exact vs plain; {e['rows']} rows: kernel "
+            f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms on {e['plain_rows']} rows, bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['probed_bound_ms']:.4f} ms at the "
+            f"probed rate); {e['device_rows']} rows: {e['device_ms']:.4f} ms, bound "
+            f"{e['device_bound_ms']:.4f} ms ({e['device_probed_bound_ms']:.4f} ms probed)")
+    log(f"[kernels] poseidon_fr: host {host_us:.1f} us per launch (perm on 256 states); "
+        f"{MADS_PER_PERM_FR} multiply-adds a permutation")
+    # the kernel's row: the leaf sponge over the wrap attestation's wide rows
+    main = entries["hash_rows"]
+    return {
+        "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "plain_rows": main["plain_rows"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "host_us_per_launch": host_us, "device_batch": WRAP_ROWS, "device_ms": main["device_ms"],
+        "device_bound_ms": main["device_bound_ms"], "device_bound_by": main["device_bound_by"],
+        "device_probed_bound_ms": main["device_probed_bound_ms"],
+        "device_probed_bound_by": main["device_probed_bound_by"],
         "entries": entries,
     }
 
@@ -818,8 +1022,8 @@ def phase_golden(device) -> None:
             device=device,
         )
         t = time.perf_counter()
-        prover.verifying_key  # the deterministic MiMC CRS: host setup, once per process
-        log(f"[golden] Groth16 CRS setup (host): {time.perf_counter() - t:.2f} s")
+        prover.verifying_key  # the deterministic MiMC CRS, once per process
+        log(f"[golden] Groth16 CRS setup (MiMC wrap): {time.perf_counter() - t:.2f} s")
         t = time.perf_counter()
         _, r2, r3, r4, _ = drive(prover, cfg["blocks"])
         got = {
@@ -832,6 +1036,41 @@ def phase_golden(device) -> None:
             raise AssertionError(f"golden mismatch ({name}): {got} != {entry['sha256']}")
         log(f"[golden] tiny configuration, {name}, on the card in {time.perf_counter() - t:.2f} s: "
             "all sha256 digests match")
+    phase_golden_stark_wrap(device)
+
+
+def stark_wrap_prover(cfg: dict, crs_dir: str, device) -> ps.BatchProver:
+    return ps.BatchProver(
+        stark_params=stark.StarkParams(**cfg["stark_params"]),
+        chunk_trace_rows=cfg["chunk_trace_rows"], agg_queries=cfg["agg_queries"], wrap="stark",
+        wrap_queries=cfg["wrap_queries"], wrap_grind_bits=cfg["wrap_grind_bits"],
+        wrap_blowup=cfg["wrap_blowup"], max_wrap_leaves=cfg["max_wrap_leaves"],
+        groth16_seed=cfg["groth16_seed"], crs_dir=crs_dir, device=device,
+    )
+
+
+def phase_golden_stark_wrap(device) -> None:
+    """The tiny stark-wrap configuration of tests/data/torch_stark_wrap_golden.json
+    on the card: its CRS made into a fresh directory, the four steps, every
+    sha256 digest the JAX package's."""
+    golden = json.loads(STARK_GOLDEN.read_text())
+    cfg = golden["config"]
+    with scratch_dir() as crs_dir:
+        prover = stark_wrap_prover(cfg, crs_dir, device)
+        t = time.perf_counter()
+        prover.ensure_wrap_crs(cfg["aggregator_addr"])
+        t_crs = time.perf_counter() - t
+        _, r2, r3, r4, times = drive(prover, cfg["blocks"], aggregator=cfg["aggregator_addr"])
+    got = {
+        "chunk_proofs": [_sha(c.proof) for c in r2.chunk_proofs],
+        "aggregated": _sha(r3.result_string),
+        "final_proof": _sha(r4.final_proof.proof),
+        "public_input": _sha(r4.final_proof.public_input),
+    }
+    if got != golden["sha256"]:
+        raise AssertionError(f"golden mismatch (stark wrap): {got} != {golden['sha256']}")
+    log(f"[golden] tiny configuration, stark wrap, on the card: CRS {t_crs:.2f} s, four steps "
+        f"{sum(times.values()):.2f} s: all sha256 digests match")
 
 
 def require_at_most(path: str, launches: dict, name: str, most: int) -> None:
@@ -840,37 +1079,8 @@ def require_at_most(path: str, launches: dict, name: str, most: int) -> None:
                              f"expected at most {most}")
 
 
-class timed_calls:
-    """While active, every call of step 4's parts (`groth16.prove`, each
-    `msm.msm_g1` / `msm.msm_g2` inside it, `groth16.verify`) is synchronised
-    and its wall time kept as (name, size of the first argument, seconds)."""
-
-    TARGETS = ((msm, "msm_g1"), (msm, "msm_g2"), (groth16, "prove"), (groth16, "verify"))
-
-    def __init__(self):
-        self.times = []
-
-    def __enter__(self):
-        self._saved = [getattr(mod, name) for mod, name in self.TARGETS]
-        for (mod, name), fn in zip(self.TARGETS, self._saved):
-            setattr(mod, name, self._wrap(name, fn))
-        return self
-
-    def _wrap(self, name, fn):
-        def run(first, *args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(first, *args, **kwargs)
-            torch.cuda.synchronize()
-            size = len(first) if isinstance(first, list) else 0
-            self.times.append((name, size, time.perf_counter() - t))
-            return out
-        return run
-
-    def __exit__(self, *exc):
-        for (mod, name), fn in zip(self.TARGETS, self._saved):
-            setattr(mod, name, fn)
-        return False
+# step 4's parts under the mimc wrap: the proof, each MSM inside it, verify
+STEP4_PARTS = ((msm, "msm_g1"), (msm, "msm_g2"), (groth16, "prove"), (groth16, "verify"))
 
 
 def phase_slice(device) -> dict:
@@ -878,7 +1088,7 @@ def phase_slice(device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     steps = {}
     kernels.reset_launches()
-    with timed_calls() as calls:
+    with timed_funcs(STEP4_PARTS) as calls:
         r1, r2, r3, r4, times = drive(prover, list(range(1, SLICE_BLOCKS + 1)), steps)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
@@ -950,7 +1160,7 @@ def phase_recursion(device) -> dict:
     kernels.reset_launches()
     air.STAGE_HOOK, recursion.attest_chunk = on_stage, attest_from_now
     try:
-        with timed_calls() as calls:
+        with timed_funcs(STEP4_PARTS) as calls:
             r1, r2, r3, r4, times = drive(prover, list(range(1, RECURSION_BLOCKS + 1)), steps)
     finally:
         air.STAGE_HOOK, recursion.attest_chunk = None, attest_chunk
@@ -1020,6 +1230,219 @@ def phase_recursion(device) -> dict:
     # where one attestation's time goes on the card (launch counts were read above)
     device_profile("recursion attestation", lambda: recursion.attest_chunk(
         chunks[0], num_queries_agg=prover.agg_queries, device=device))
+    return launches
+
+
+class timed_funcs:
+    """While active, every call of the given module functions is
+    synchronised and its wall time kept as (name, length of the first
+    argument if it is a list else 0, seconds), in call order."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.times = []
+
+    def __enter__(self):
+        self._saved = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), fn in zip(self.targets, self._saved):
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            size = len(args[0]) if args and isinstance(args[0], list) else 0
+            self.times.append((name, size, time.perf_counter() - t))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self._saved):
+            setattr(mod, name, fn)
+        return False
+
+    def total(self, name: str) -> float:
+        return sum(s for n, _, s in self.times if n == name)
+
+
+def phase_stark_wrap(device) -> dict:
+    """The node's default, sound final wrap at the node's configuration:
+    `BatchProver(recursion=True, wrap="stark")` with the production chunk
+    shape and the default wrap profile (11 queries, 12 grinding bits, blowup
+    32, two leaves), 1,600 blocks (2 chunks).  The CRS is made first, as a
+    deployment does once (`ensure_wrap_crs`, into a fresh directory), then
+    the four steps run as a node drives them."""
+    from eigen_zeth_tpu_torch.models import crs, wrap_circuit
+
+    with scratch_dir() as crs_dir:
+        prover = ps.BatchProver(recursion=True, wrap="stark", crs_dir=crs_dir, device=device)
+        sp = prover.stark_params
+        shape = (prover.chunk_trace_rows, sp.blowup, sp.num_queries, sp.terminal_size,
+                 prover.wrap_queries, prover.wrap_grind_bits, prover.wrap_blowup,
+                 prover.max_wrap_leaves)
+        if shape != (4096, 4, 32, 64, 11, 12, 32, 2):
+            raise AssertionError(f"not the node's configuration: {shape}")
+
+        stages, last = [], [0.0]
+
+        def on_stage(name: str) -> None:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages.append((name, now - last[0], torch.cuda.max_memory_allocated(device)))
+            last[0] = now
+
+        attest = recursion.attest_chunk_wrap
+
+        def attest_from_now(*args, **kwargs):
+            torch.cuda.synchronize()
+            last[0] = time.perf_counter()  # the trace build starts here
+            return attest(*args, **kwargs)
+
+        sizes = []
+        build = wrap_circuit.build_final_circuit
+
+        def build_counted(*args, **kwargs):
+            out = build(*args, **kwargs)
+            sizes.append((len(out[0].constraints), out[0].num_vars))
+            return out
+
+        targets = ((stark, "prove_chunk"), (wrap_circuit, "build_final_circuit"),
+                   (crs, "generate"), (groth16, "_lagrange_at"), (groth16, "fixed_base_device"),
+                   (crs, "save"), (crs, "load"), (groth16, "_row_values"),
+                   (groth16, "_h_from_values_device"), (msm, "msm_affine"), (groth16, "prove"),
+                   (groth16, "verify"))
+        torch.cuda.reset_peak_memory_stats(device)
+        air.STAGE_HOOK, recursion.attest_chunk_wrap = on_stage, attest_from_now
+        wrap_circuit.build_final_circuit = build_counted
+        try:
+            with timed_funcs(targets) as crs_calls:
+                kernels.reset_launches()
+                t = time.perf_counter()
+                prover.ensure_wrap_crs(AGGREGATOR)
+                torch.cuda.synchronize()
+                t_crs = time.perf_counter() - t
+                crs_launches = dict(kernels.LAUNCHES)
+            crs_stages = list(stages)
+            stages.clear()
+            crs_peak = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            prover._stark_crs.clear()  # step 4 loads the CRS from its files, as a node does
+            steps = {}
+            with timed_funcs(targets) as calls:
+                kernels.reset_launches()
+                r1, r2, r3, r4, times = drive(prover, list(range(1, STARK_WRAP_BLOCKS + 1)), steps)
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            air.STAGE_HOOK, recursion.attest_chunk_wrap = None, attest
+            wrap_circuit.build_final_circuit = build
+        peak = torch.cuda.max_memory_allocated(device)
+
+        # gates
+        if r1.chunk_count != 2 or len(r2.chunk_proofs) != 2:
+            raise AssertionError(f"expected 2 chunks, got {r1.chunk_count}")
+        chunks = [json.loads(c.proof)["stark"] for c in r2.chunk_proofs]
+        for i, proof in enumerate(chunks):
+            if proof["n"] != 4096 or not stark.verify_chunk(proof, sp):
+                raise AssertionError(f"chunk proof {i} does not verify")
+        agg = json.loads(r3.result_string)
+        if [k["type"] for k in agg["children"]] != ["chunk-attested-wrap"] * 2:
+            raise AssertionError("step 3 did not make wrap-profile attestations")
+        t = time.perf_counter()
+        stmts = []
+        for i, att in enumerate(agg["children"]):
+            p = att["wrap_proof"]
+            if (p["n"], p["n_cols"], p["ext_blowup"], p["num_queries"], p["grind_bits"]) != (
+                    1 << 18, ATT_COLS, 32, 11, 12):
+                raise AssertionError(f"wrap attestation {i} has not the node's profile")
+            digest = recursion.verify_attestation_wrap(
+                att, expected_queries=32, expected_rows=4096, expected_terminal=64,
+                expected_wrap_queries=11, expected_wrap_grind=12, wrap_blowup=32, device=device)
+            if digest != ps.chunk_digest(chunks[i]):
+                raise AssertionError(f"wrap attestation {i} does not bind its chunk's digest")
+            a, publics, bnds = recursion.wrap_attestation_instance(
+                att, expected_queries=32, expected_rows=4096, expected_terminal=64,
+                wrap_blowup=32)
+            stmts.append(wrap_circuit.statement_hash(a, publics, bnds, int(p["shift"]), 11, 12,
+                                                      device=device))
+        t_verify = time.perf_counter() - t
+        pub = [int(x) for x in json.loads(r4.final_proof.public_input)]
+        if pub != [wrap_circuit.final_public_input(stmts, AGGREGATOR)]:
+            raise AssertionError("the public input is not the statement hash of the headers")
+        vk = prover.pinned_vk(AGGREGATOR)
+        proof = json.loads(r4.final_proof.proof)
+        t = time.perf_counter()
+        if not groth16.verify(vk, proof, pub):
+            raise AssertionError("the final proof does not verify under the pinned VK")
+        t_pinned = time.perf_counter() - t
+        forged = dict(proof, pi_c=dict(proof["pi_a"]))
+        if groth16.verify(vk, forged, pub):
+            raise AssertionError("a forged pi_c passes groth16.verify")
+        bad = json.loads(r3.result_string)
+        row = bad["children"][0]["wrap_proof"]["trace_openings"][0][0]["row"]
+        row[0] = str((int(row[0]) + 1) % gl.P)
+        res = prover.gen_final_proof("smoke", json.dumps(bad), "BN128", AGGREGATOR)
+        if res.result_code != ProofResultCode.COMPLETED_ERROR:
+            raise AssertionError("a corrupted wrap attestation did not give COMPLETED_ERROR")
+    for step in ("gen_chunk_proof",):
+        require_launches(f"stark wrap, {step}", steps[step], ("poseidon2",))
+    require_launches("stark wrap, gen_aggregated_proof", steps["gen_aggregated_proof"],
+                     ("poseidon_fr",))
+    require_at_most("stark wrap, gen_aggregated_proof", steps["gen_aggregated_proof"],
+                    "poseidon_fr", F_STEP3_MOST)
+    require_launches("stark wrap, gen_final_proof", steps["gen_final_proof"],
+                     ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_add_g2",
+                      "point_add_g2_masked"))
+    require_launches("stark wrap, ensure_wrap_crs", crs_launches, ("point_add", "point_add_g2"))
+
+    # the device fixed-base against the host one on 2^14 scalars (G1) and 2^10 (G2)
+    rng = np.random.default_rng(77)
+    for g2, n in ((False, 1 << 14), (True, 1 << 10)):
+        scalars = [int.from_bytes(rng.bytes(32), "little") % bn254.R for _ in range(n)]
+        scalars[1] = 0
+        if groth16.fixed_base_device(scalars, g2, device).to_host() != groth16._host_fixed_base(
+                scalars, g2):
+            raise AssertionError(f"the device fixed-base differs from the host's ({n} scalars)")
+
+    log(f"[stark-wrap] {STARK_WRAP_BLOCKS} blocks, {r1.chunk_count} chunks of 4096 rows "
+        f"(blowup 4, 32 queries, terminal 64); wrap profile 11 queries, 12 grinding bits, "
+        f"blowup 32, {prover.max_wrap_leaves} leaves")
+    log(f"[stark-wrap] ensure_wrap_crs: {t_crs:.3f} s, peak {crs_peak / 2**20:.0f} MiB, "
+        f"launches {crs_launches}")
+    for name, secs, mem in crs_stages:
+        log(f"[stark-wrap] ensure_wrap_crs, padding attestation: {name}: {secs:.3f} s "
+            f"(peak so far {mem / 2**20:.0f} MiB)")
+    for name, _, secs in crs_calls.times:
+        if name not in ("fixed_base_device",):
+            log(f"[stark-wrap] ensure_wrap_crs: {name}: {secs:.3f} s")
+    log(f"[stark-wrap] ensure_wrap_crs: fixed_base_device x "
+        f"{sum(1 for n, _, _ in crs_calls.times if n == 'fixed_base_device')}: "
+        f"{crs_calls.total('fixed_base_device'):.3f} s")
+    log(f"[stark-wrap] circuit: {sizes[0][0]} constraints, {sizes[0][1]} variables")
+    for step, secs in times.items():
+        log(f"[stark-wrap] {step}: {secs:.3f} s, launches F {steps[step]['poseidon_fr']}, "
+            f"E {steps[step]['poseidon2']}, B {steps[step]['point_add']}, "
+            f"B G2 {steps[step]['point_add_g2']}, A {steps[step]['mont_mul']}")
+    k = 0
+    for name, secs, mem in stages:
+        k += name == "trace"
+        log(f"[stark-wrap] gen_aggregated_proof, attestation {k}: {name}: {secs:.3f} s "
+            f"(peak so far {mem / 2**20:.0f} MiB)")
+    for name, _, secs in calls.times:
+        if name != "prove_chunk":
+            log(f"[stark-wrap] gen_final_proof: {name}: {secs:.3f} s")
+    log(f"[stark-wrap] total of the four steps: {sum(times.values()):.3f} s")
+    log(f"[stark-wrap] max_memory_allocated: {peak / 2**20:.1f} MiB (steps), "
+        f"{crs_peak / 2**20:.1f} MiB (CRS)")
+    log(f"[stark-wrap] launches: {launches}")
+    log(f"[stark-wrap] 2/2 chunk proofs pass verify_chunk; 2/2 wrap attestations pass "
+        f"verify_attestation_wrap under the pinned profile ({t_verify:.3f} s); the public input "
+        f"is the statement hash of the headers; groth16.verify under the pinned VK is True "
+        f"({t_pinned:.3f} s); a forged pi_c is rejected; a corrupted attestation gives "
+        f"COMPLETED_ERROR; the device fixed-base equals the host's on 2^14 G1 and 2^10 G2 "
+        f"scalars")
     return launches
 
 
@@ -1211,8 +1634,8 @@ def main() -> int:
     points = test_points(device)
     paths += [phase_msm(device, points), phase_kzg(device), phase_madd(device, points)]
     del points
-    paths.append(phase_recursion(device))
-    names = [*KERNEL_WORK, "poseidon2"]
+    paths += [phase_recursion(device), phase_stark_wrap(device)]
+    names = [*KERNEL_WORK, "poseidon2", "poseidon_fr"]
     launches = {name: sum(path[name] for path in paths) for name in names}
     require_launches("main", launches, names)
     rows = [

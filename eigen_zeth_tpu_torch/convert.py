@@ -7,6 +7,11 @@ python ints — so this module imports neither package's JAX code:
   (16, B) uint32 limb planes    <-> (16, B) int32 tensor (same 16-bit limbs)
   a ProvingKey / VerifyingKey / R1CS of the JAX package -> the port's
   the fields of an Srs / G1Table of the JAX package    -> the port's
+  (16, ...) Fr limb planes (Montgomery or regular)      -> (..., 4) int64 Fr words
+  a MerkleTreeFr of the JAX package (its levels)        -> the port's
+
+A proving key's pk.npz arrays, which both packages write alike, become the
+port's ProvingKey through `models.crs.proving_key_from_arrays`.
 
 The recursion tier (models/air.py, models/recursion.py,
 `BatchProver(recursion=True)`) carries no parameters across: its inputs are
@@ -21,8 +26,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import groth16, kzg
-from .ops import msm
+from .models import groth16, kzg, merkle_fr
+from .ops import bn254, msm
+from .ops import poseidon_fr as pfr
 
 
 def gf_to_tensor(lo, hi, device) -> torch.Tensor:
@@ -75,3 +81,18 @@ def g1_table_from_jax(txs, tys, tinf, c: int, n: int, device) -> msm.G1Table:
     as the port's G1Table on `device`."""
     inf = torch.from_numpy(np.asarray(tinf, dtype=bool).copy()).to(device)
     return msm.G1Table(limbs_to_tensor(txs, device), limbs_to_tensor(tys, device), inf, c, n)
+
+
+def fr_words_from_limbs(limbs, device, mont: bool = True) -> torch.Tensor:
+    """(16, ...) uint32 Fr limb planes (the JAX package's device layout; in
+    Montgomery form unless mont=False) -> (..., 4) int64 words of the
+    regular values (ops/poseidon_fr.py's device layout)."""
+    ctx = bn254.fr()
+    return pfr.words_from_ints(ctx.to_int(limbs_to_tensor(limbs, "cpu"), mont=mont), device)
+
+
+def merkle_tree_fr_from(levels) -> merkle_fr.MerkleTreeFr:
+    """The levels of the JAX package's MerkleTreeFr (lists of python ints,
+    leaves first) as the port's tree."""
+    return merkle_fr.MerkleTreeFr(levels=[[int(v) for v in lv] for lv in levels])
+

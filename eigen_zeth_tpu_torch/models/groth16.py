@@ -1,12 +1,17 @@
 """Groth16 over BN254 — setup / prove / verify in the reference proof JSON
 schema.  Port of eigen_zeth_tpu/models/groth16.py.
 
-  * setup   host python ints, deterministic from a seed (a dev stand-in
-            for a ceremony); the bulk queries use the host windowed
-            fixed-base tables
+  * setup   deterministic from a seed (a dev stand-in for a ceremony);
+            the QAP evaluations at tau are host python ints, the bulk
+            queries windowed fixed-base tables: on the host for a small
+            circuit, on the device for the in-circuit STARK verifier
+            (gather and a tree of kernel B adds, G1 and G2; the queries
+            then stay on the device as `DevicePoints`)
   * prove   the G1/G2 MSMs of 64 points or more run on the device
             Pippenger (ops/msm.py: kernel B for every G1 add, kernel A for
-            every Fq product); the QAP quotient is host NTT math over Fr
+            every Fq product); the QAP quotient h runs its NTTs on the
+            device (kernel A over the Fr MontCtx) for a CUDA device and on
+            the host otherwise
   * verify  host pairing: e(A,B) = e(α,β)·e(Σpubᵢ·ICᵢ, γ)·e(C,δ)
 
 The same rng_seed gives the same proof JSON as the JAX package, byte for
@@ -20,10 +25,15 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import multiprocessing
+import os
 from dataclasses import dataclass
 from typing import Dict, List
 
-from ..ops import msm, pairing
+import numpy as np
+import torch
+
+from ..ops import bn254, msm, pairing
 from ..ops.bn254 import (
     G1_GEN,
     G2_GEN_X,
@@ -85,6 +95,32 @@ class VerifyingKey:
     ic: list  # [(βA_i+αB_i+C_i)(τ)/γ]₁ for public vars (incl. constant)
 
 
+@dataclass
+class DevicePoints:
+    """A CRS query kept on the device: affine coordinates as Montgomery
+    limbs over Fq ((16, N) int32 for G1, (c0, c1) pairs of them for G2)
+    and an (N,) bool infinity mask (coordinates (0, 0) there)."""
+
+    x: object
+    y: object
+    inf: torch.Tensor
+    g2: bool
+
+    def __len__(self) -> int:
+        return int(self.inf.shape[0])
+
+    def to_host(self) -> list:
+        """The JAX package's form: affine python-int tuples, None at infinity."""
+        F = bn254.Fq2Ops() if self.g2 else bn254.FqOps()
+        xs, ys = F.to_int(self.x), F.to_int(self.y)
+        inf = self.inf.cpu().numpy()
+        if self.g2:
+            return [None if inf[i] else ((int(xs[0][i]), int(xs[1][i])),
+                                         (int(ys[0][i]), int(ys[1][i])))
+                    for i in range(len(inf))]
+        return [None if inf[i] else (int(xs[i]), int(ys[i])) for i in range(len(inf))]
+
+
 def _tau_from_seed(seed: str, tag: str) -> int:
     return (
         int.from_bytes(hashlib.sha256(f"{seed}/{tag}".encode()).digest() * 2, "big") % (R - 1)
@@ -103,13 +139,29 @@ def _lagrange_at(tau: int, d: int) -> list[int]:
     # 2-adicity of r-1 covers d (r-1 = 2^28·odd)
     g = pow(5, (R - 1) // d, R)  # 5 generates Fr*
     zt = (pow(tau, d, R) - 1) % R
-    out = []
-    wj = 1
-    d_inv = pow(d, R - 2, R)
-    for _ in range(d):
-        denom_inv = pow((tau - wj) % R, R - 2, R)
-        out.append(wj * zt % R * d_inv % R * denom_inv % R)
-        wj = wj * g % R
+    ws = [1] * d
+    for j in range(1, d):
+        ws[j] = ws[j - 1] * g % R
+    # the d inverses of (tau - w_j) by one batch inversion (tau is no root
+    # of unity: it is a seed's hash); the same values as one Fermat power each
+    dens = [(tau - w) % R for w in ws]
+    assert all(dens)
+    inv = _batch_inv(dens, R)
+    c = zt * pow(d, R - 2, R) % R
+    return [w * c % R * i % R for w, i in zip(ws, inv)]
+
+
+def _batch_inv(vals: list, mod: int) -> list:
+    """Inverses of nonzero values mod a prime (Montgomery's trick, one power)."""
+    n = len(vals)
+    prefix = [1] * (n + 1)
+    for i, v in enumerate(vals):
+        prefix[i + 1] = prefix[i] * v % mod
+    acc = pow(prefix[n], mod - 2, mod)
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = acc * prefix[i] % mod
+        acc = acc * vals[i] % mod
     return out
 
 
@@ -230,8 +282,138 @@ def _host_fixed_base(scalars, g2: bool) -> list:
     return out
 
 
-def batch_fixed_base(scalars, g2: bool = False) -> list:
-    """[k·G for k in scalars] — affine host tuples, None at infinity."""
+def _h_jac_add(F, a, b):
+    """Jacobian + Jacobian (host, field-generic), None = infinity."""
+    if b is None:
+        return a
+    if a is None:
+        return b
+    X1, Y1, Z1 = a
+    X2, Y2, Z2 = b
+    Z1Z1 = F.mul(Z1, Z1)
+    Z2Z2 = F.mul(Z2, Z2)
+    U1 = F.mul(X1, Z2Z2)
+    U2 = F.mul(X2, Z1Z1)
+    S1 = F.mul(F.mul(Y1, Z2), Z2Z2)
+    S2 = F.mul(F.mul(Y2, Z1), Z1Z1)
+    H = F.sub(U2, U1)
+    r = F.sub(S2, S1)
+    if F.is_zero(H):
+        if F.is_zero(r):
+            return _h_jac_dbl(F, X1, Y1, Z1)
+        return None
+    HH = F.mul(H, H)
+    HHH = F.mul(H, HH)
+    V = F.mul(U1, HH)
+    X3 = F.sub(F.sub(F.mul(r, r), HHH), F.add(V, V))
+    Y3 = F.sub(F.mul(r, F.sub(V, X3)), F.mul(S1, HHH))
+    Z3 = F.mul(F.mul(Z1, Z2), H)
+    return X3, Y3, Z3
+
+
+def host_pippenger(points, scalars, g2: bool = False, c: int = 13):
+    """Host bucket-method MSM with Jacobian accumulation (the CPU path at
+    circuit scale): W·N mixed adds and W·2^c bucket folds, one inversion."""
+    F = HOST_FQ2 if g2 else HOST_FQ
+    digits = msm.scalar_digits([int(s) % R for s in scalars], c=c)  # (W, N)
+    n_windows = digits.shape[0]
+    total = None  # Jacobian
+    for w in range(n_windows - 1, -1, -1):
+        if total is not None:
+            for _ in range(c):
+                total = _h_jac_dbl(F, *total)
+        buckets = {}
+        col = digits[w]
+        for i, p in enumerate(points):
+            d = int(col[i])
+            if d and p is not None:
+                buckets[d] = _h_jac_madd(F, buckets.get(d), p)
+        # sum_d d*B_d by suffix sums: run accumulates the suffix of
+        # buckets, acc accumulates run once per digit value
+        acc = None
+        if buckets:
+            run = None
+            for d in range(max(buckets), 0, -1):
+                if d in buckets:
+                    run = _h_jac_add(F, run, buckets[d])
+                acc = _h_jac_add(F, acc, run)
+        total = _h_jac_add(F, total, acc)
+    if total is None:
+        return None
+    X, Y, Z = total
+    zi = F.inv(Z)
+    zi2 = F.mul(zi, zi)
+    return (F.mul(X, zi2), F.mul(Y, F.mul(zi2, zi)))
+
+
+# ---------------------------------------------------------------------------
+# the device fixed-base (the JAX package's `_fb_gather_reduce`): the window
+# table on the device, a gather of one entry per window and scalar, then a
+# tree of log2(32) = 5 levels of complete adds (kernel B, or B's G2 form),
+# and the affine conversion on the device (kernel A's power for the
+# inverses).  FB_CHUNK scalars a pass bound the gathered planes (0.4 GB of
+# G1 limbs); the JAX package passes 2^14, a size its compiler fixes.
+
+FB_CHUNK = 1 << 16
+FB_DEVICE_MIN = 1 << 13  # below this a host fixed-base (the JAX package's threshold)
+
+_fb_tables: dict = {}
+
+
+def _fb_table_device(g2: bool, device):
+    """The (W·2^c) window table as Jacobian device points (d = 0 entries at
+    infinity), made once per (group, device)."""
+    key = (g2, torch.device(device))
+    if key not in _fb_tables:
+        flat = [e for row in _fb_table_host(g2) for e in row]
+        make = msm._g2_device_points if g2 else msm._g1_device_points
+        _fb_tables[key] = make(flat, device)
+    return _fb_tables[key]
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def fixed_base_device(scalars, g2: bool, device, chunk: int = FB_CHUNK) -> DevicePoints:
+    """[k·G for k in scalars] on `device` as DevicePoints: kernel B (G1) or
+    its G2 form for the tree adds on a CUDA device, their plain versions on
+    the CPU.  The scalars cross to the device once, as 32-bit limbs, and
+    each pass takes its window digits there."""
+    F = bn254.Fq2Ops() if g2 else bn254.FqOps()
+    G = msm.ECGroup(F)
+    table = _fb_table_device(g2, device)
+    limbs = msm._limbs_tensor([int(s) % R for s in scalars], device)  # (n, 8)
+    n = limbs.shape[0]
+    chunk = min(chunk, max(1, n))
+    window = torch.arange(FB_W, device=device)[:, None] * (1 << FB_C)
+    xs, ys, infs = [], [], []
+    for base in range(0, n, chunk):
+        digits = msm.digits_from_limbs(limbs[base : base + chunk], c=FB_C)  # (W, k)
+        k = digits.shape[1]
+        idx = (window + digits).reshape(-1)
+        pick = bn254.PointJ(*_tree_map(lambda l: l[:, idx].reshape(16, FB_W, k), tuple(table)))
+        w = FB_W
+        while w > 1:
+            even = bn254.PointJ(*_tree_map(lambda l: l[:, 0::2], tuple(pick)))
+            odd = bn254.PointJ(*_tree_map(lambda l: l[:, 1::2], tuple(pick)))
+            pick = G.add(even, odd)
+            w //= 2
+        p = bn254.PointJ(*_tree_map(lambda l: l[:, 0], tuple(pick)))
+        ax, ay = bn254.to_affine(F, p)
+        xs.append(ax)
+        ys.append(ay)
+        infs.append(F.is_zero(p.z))
+    cat = lambda *parts: torch.cat(parts, dim=-1)  # noqa: E731
+    return DevicePoints(x=_tree_map(cat, *xs), y=_tree_map(cat, *ys),
+                        inf=torch.cat(infs), g2=g2)
+
+
+def batch_fixed_base(scalars, g2: bool = False, *, device):
+    """[k·G for k in scalars]: affine host tuples (None at infinity), or
+    DevicePoints when `device` is a CUDA device and the batch is large."""
     scalars = [int(s) % R for s in scalars]
     if not scalars:
         return []
@@ -239,11 +421,15 @@ def batch_fixed_base(scalars, g2: bool = False) -> list:
         if g2:
             return [h_ec_mul_jac_f(s, G2_GEN, HOST_FQ2) if s else None for s in scalars]
         return [h_ec_mul_jac_f(s, G1_GEN) if s else None for s in scalars]
+    if torch.device(device).type == "cuda" and len(scalars) > FB_DEVICE_MIN:
+        return fixed_base_device(scalars, g2, device)
     return _host_fixed_base(scalars, g2)
 
 
-def setup(r1cs: R1CS, seed: str = "ezt-groth16-dev") -> tuple[ProvingKey, VerifyingKey]:
-    """Deterministic dev CRS (trusted-setup ceremony stand-in)."""
+def setup(r1cs: R1CS, seed: str = "ezt-groth16-dev", *, device
+          ) -> tuple[ProvingKey, VerifyingKey]:
+    """Deterministic dev CRS (trusted-setup ceremony stand-in).  With a
+    CUDA `device` the large queries are made, and stay, on the device."""
     alpha = _tau_from_seed(seed, "alpha")
     beta = _tau_from_seed(seed, "beta")
     gamma = _tau_from_seed(seed, "gamma")
@@ -251,18 +437,19 @@ def setup(r1cs: R1CS, seed: str = "ezt-groth16-dev") -> tuple[ProvingKey, Verify
     tau = _tau_from_seed(seed, "tau")
 
     d = _domain_size(len(r1cs.constraints))
-    lag = _lagrange_at(tau, d)
+    on_card = torch.device(device).type == "cuda"
+    lag = _lagrange_at_device(tau, d, device) if on_card else _lagrange_at(tau, d)
     nv = r1cs.num_vars
     a_tau = [0] * nv
     b_tau = [0] * nv
     c_tau = [0] * nv
-    for j, (arow, brow, crow) in enumerate(r1cs.constraints):
-        for v, coeff in arow.items():
-            a_tau[v] = (a_tau[v] + coeff * lag[j]) % R
-        for v, coeff in brow.items():
-            b_tau[v] = (b_tau[v] + coeff * lag[j]) % R
-        for v, coeff in crow.items():
-            c_tau[v] = (c_tau[v] + coeff * lag[j]) % R
+    for part in _over_ranges(_sums_at_tau, len(r1cs.constraints), (r1cs, lag)):
+        for acc, sums in zip((a_tau, b_tau, c_tau), part):
+            for v, t in sums.items():
+                acc[v] += t
+    a_tau = [v % R for v in a_tau]
+    b_tau = [v % R for v in b_tau]
+    c_tau = [v % R for v in c_tau]
 
     gamma_inv = pow(gamma, R - 2, R)
     delta_inv = pow(delta, R - 2, R)
@@ -276,6 +463,7 @@ def setup(r1cs: R1CS, seed: str = "ezt-groth16-dev") -> tuple[ProvingKey, Verify
 
     # bulk queries ride the windowed fixed-base tables; the handful of
     # single points stay host double-and-add
+    fb = functools.partial(batch_fixed_base, device=device)
     l_scalars = [
         (beta * a_tau[i] + alpha * b_tau[i] + c_tau[i]) * delta_inv % R
         for i in range(r1cs.num_public + 1, nv)
@@ -295,11 +483,11 @@ def setup(r1cs: R1CS, seed: str = "ezt-groth16-dev") -> tuple[ProvingKey, Verify
         beta2=g2(beta),
         delta1=g1(delta),
         delta2=g2(delta),
-        a_query=batch_fixed_base(a_tau),
-        b1_query=batch_fixed_base(b_tau),
-        b2_query=batch_fixed_base(b_tau, g2=True),
-        l_query=batch_fixed_base(l_scalars),
-        h_query=batch_fixed_base(h_scalars),
+        a_query=fb(a_tau),
+        b1_query=fb(b_tau),
+        b2_query=fb(b_tau, g2=True),
+        l_query=fb(l_scalars),
+        h_query=fb(h_scalars),
         domain=d,
         num_public=r1cs.num_public,
     )
@@ -308,7 +496,7 @@ def setup(r1cs: R1CS, seed: str = "ezt-groth16-dev") -> tuple[ProvingKey, Verify
         beta2=g2(beta),
         gamma2=g2(gamma),
         delta2=g2(delta),
-        ic=batch_fixed_base(ic_scalars),
+        ic=batch_fixed_base(ic_scalars, device="cpu"),  # the VK holds host points
     )
     return pk, vk
 
@@ -346,19 +534,107 @@ def _fr_ntt(vals: list[int], inverse: bool = False) -> list[int]:
     return a
 
 
-def _h_coeffs(r1cs: R1CS, w: List[int], d: int) -> list[int]:
-    """Coefficients of h(x) = (a·b - c)/Z over the size-d domain —
-    O(d log d) host NTTs (the round-1 O(d²) interpolation was fine at
-    d ≤ 16 but the MiMC wrap runs at d = 2048)."""
-    a_vals = [0] * d
-    b_vals = [0] * d
-    c_vals = [0] * d
-    for j, (arow, brow, crow) in enumerate(r1cs.constraints):
-        a_vals[j] = r1cs.eval_row(arow, w)
-        b_vals[j] = r1cs.eval_row(brow, w)
-        c_vals[j] = r1cs.eval_row(crow, w)
+def _row_values(r1cs: R1CS, w: List[int]) -> tuple:
+    """(A·w, B·w, C·w) of every constraint, each as the values' 32-byte
+    little-endian words joined in one bytes object; raises AssertionError
+    if a constraint is not satisfied."""
+    parts = _over_ranges(_values_at_w, len(r1cs.constraints), (r1cs, w))
+    return tuple(b"".join(p[k] for p in parts) for k in range(3))
 
-    ac, bc, cc = _fr_ntt(a_vals, True), _fr_ntt(b_vals, True), _fr_ntt(c_vals, True)
+
+def _ints(words: bytes) -> list[int]:
+    """A bytes object of 32-byte little-endian words -> the python ints."""
+    return [int.from_bytes(words[i : i + 32], "little") for i in range(0, len(words), 32)]
+
+
+# The passes over a large circuit's constraints (the rows' values at the
+# witness in prove, their sums at tau in setup) run in forked host
+# processes, a contiguous range of constraints each: the STARK wrap's
+# circuit has millions.  A forked worker inherits the circuit without a
+# copy; it runs only Python int math and touches neither torch nor CUDA, so
+# the parent's CUDA context and thread pools are never used after the
+# fork.  Each worker pickles its results back (about 1.1 GB of row values
+# for the production wrap).  HOST_WORKERS: the H100 hosts measured have 8
+# cores.  Building the rows once per circuit shape as arrays would make the
+# fork unnecessary (ROADMAP M4).
+HOST_WORKERS = max(1, min(8, os.cpu_count() or 1))
+PARALLEL_MIN = 1 << 18  # constraints below which one process makes the pass
+_WORKER_SHARED = None  # in a forked worker only: the pass's shared inputs
+
+
+def _init_worker(shared) -> None:
+    global _WORKER_SHARED
+    _WORKER_SHARED = shared
+
+
+def _in_worker(fn, lo: int, hi: int):
+    return fn(_WORKER_SHARED, lo, hi)
+
+
+def _over_ranges(fn, n: int, shared) -> list:
+    """[fn(shared, lo, hi) for the ranges of 0..n], one range a worker
+    process, or one range in this process for a small n.  `shared` reaches
+    the workers through the fork, never through a global of this process,
+    so passes of two provers in one process do not meet."""
+    if n < PARALLEL_MIN or HOST_WORKERS < 2:
+        return [fn(shared, 0, n)]
+    step = -(-n // HOST_WORKERS)
+    ranges = [(fn, lo, min(lo + step, n)) for lo in range(0, n, step)]
+    with multiprocessing.get_context("fork").Pool(
+            len(ranges), initializer=_init_worker, initargs=(shared,)) as pool:
+        return pool.starmap(_in_worker, ranges)
+
+
+def _values_at_w(shared: tuple, lo: int, hi: int) -> tuple:
+    """(A·w, B·w, C·w) of constraints lo..hi as joined 32-byte words, each
+    constraint checked: a·b = c.  A row object that several places share
+    (the circuit builder reuses rows) is evaluated once."""
+    r1cs, w = shared
+    seen: dict = {}
+
+    def value(row):
+        key = id(row)
+        if key not in seen:
+            seen[key] = r1cs.eval_row(row, w)
+        return seen[key]
+
+    rows = r1cs.constraints[lo:hi]
+    a, b, c = [value(x) for x, _, _ in rows], [value(x) for _, x, _ in rows], [
+        value(x) for _, _, x in rows]
+    assert all(x * y % R == z for x, y, z in zip(a, b, c)), "unsatisfied R1CS"
+    return tuple(b"".join(v.to_bytes(32, "little") for v in vals) for vals in (a, b, c))
+
+
+def _sums_at_tau(shared: tuple, lo: int, hi: int) -> tuple:
+    """{var: Σ_j coeff·L_j(tau)} over constraints lo..hi for A, B and C,
+    reduced mod R once at the end; a row shared by A and B (an S-box's x·x)
+    multiplies once."""
+    r1cs, lag = shared
+    a, b, c = {}, {}, {}
+    for j in range(lo, hi):
+        arow, brow, crow = r1cs.constraints[j]
+        lj = lag[j]
+        if arow is brow:
+            for v, coeff in arow.items():
+                t = coeff * lj
+                a[v] = a.get(v, 0) + t
+                b[v] = b.get(v, 0) + t
+        else:
+            for v, coeff in arow.items():
+                a[v] = a.get(v, 0) + coeff * lj
+            for v, coeff in brow.items():
+                b[v] = b.get(v, 0) + coeff * lj
+        for v, coeff in crow.items():
+            c[v] = c.get(v, 0) + coeff * lj
+    return tuple({v: t % R for v, t in d.items()} for d in (a, b, c))
+
+
+def _h_from_values(a_rows: bytes, b_rows: bytes, c_rows: bytes, d: int) -> list[int]:
+    """Coefficients of h(x) = (a·b - c)/Z over the size-d domain from the
+    constraints' row values (`_row_values`): O(d log d) host NTTs (the
+    plain form)."""
+    ac, bc, cc = (_fr_ntt(_ints(v) + [0] * (d - len(v) // 32), True)
+                  for v in (a_rows, b_rows, c_rows))
 
     # evaluate on a coset (shift s) and divide by Z(sx) = s^d·x^d - 1
     s = 7
@@ -380,13 +656,128 @@ def _h_coeffs(r1cs: R1CS, w: List[int], d: int) -> list[int]:
     return out
 
 
+def _h_coeffs(r1cs: R1CS, w: List[int], d: int) -> list[int]:
+    """The JAX package's `_h_coeffs`: h's coefficients by host NTTs."""
+    return _h_from_values(*_row_values(r1cs, w), d)
+
+
+# ---------------------------------------------------------------------------
+# h on the device: the same seven NTTs over the Fr MontCtx, every product
+# kernel A (its plain version on the CPU)
+
+
+def _fr_powers(ctx, base: int, n: int, device) -> torch.Tensor:
+    """(16, n) Montgomery limbs of base^0 .. base^(n-1), by doubling: each
+    step multiplies the table so far by base^len (one product launch)."""
+    t = ctx.const_mont(1, (1,), device)
+    while t.shape[1] < n:
+        k = t.shape[1]
+        step = ctx.const_mont(pow(base, k, R), (1,), device)
+        t = torch.cat([t, ctx.mont_mul(t, step.expand(16, k).contiguous())], dim=1)
+    return t[:, :n].contiguous()
+
+
+def _fr_limbs(words: bytes, n: int, device) -> torch.Tensor:
+    """Canonical values as joined 32-byte words, zero-padded to n ->
+    (16, n) Montgomery limbs on `device`: the raw limbs cross, one product
+    by R^2 on the device converts."""
+    ctx = bn254.fr()
+    limbs = np.zeros((n, 16), dtype=np.int32)
+    k = len(words) // 32
+    limbs[:k] = np.frombuffer(words, dtype="<u2").reshape(k, 16)
+    x = torch.from_numpy(np.ascontiguousarray(limbs.T)).to(device)
+    return ctx.mont_mul(x, ctx.from_int([ctx.R2_mod], device, mont=False).expand_as(x).contiguous())
+
+
+def _regular_limbs(ctx, x: torch.Tensor) -> torch.Tensor:
+    """(16, n) Montgomery limbs -> the regular values' limbs (one product by 1)."""
+    return ctx.mont_mul(x, ctx.from_int([1], x.device, mont=False).expand_as(x).contiguous())
+
+
+def _scalar_words(limbs: torch.Tensor) -> torch.Tensor:
+    """(16, n) regular 16-bit limbs -> (n, 8) int64 32-bit limbs: the
+    scalars' form that the MSM takes."""
+    x = limbs.to(torch.int64)
+    return (x[0::2] | (x[1::2] << 16)).T.contiguous()
+
+
+def _lagrange_at_device(tau: int, d: int, device) -> list[int]:
+    """`_lagrange_at` on `device`: the powers of the root by doubling, the
+    inverses of (tau - w_j) by one Fermat power each (kernel A's power),
+    the same values as host ints."""
+    ctx = bn254.fr()
+    ws = _fr_powers(ctx, pow(5, (R - 1) // d, R), d, device)
+    dens = ctx.sub(ctx.const_mont(tau, (d,), device), ws)
+    if bool(ctx.is_zero(dens).any()):
+        raise AssertionError("tau is a root of unity of the domain")
+    zt = (pow(tau, d, R) - 1) % R
+    c = ctx.const_mont(zt * pow(d, R - 2, R) % R, (d,), device)
+    out = ctx.mont_mul(ctx.mont_mul(ws, c), ctx.inv(dens))
+    return [int(v) for v in ctx.to_int(_regular_limbs(ctx, out), mont=False)]
+
+
+def _fr_ntt_device(ctx, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Radix-2 NTT of (16, d) Montgomery limbs in natural order, the host
+    `_fr_ntt` butterfly for butterfly.  table: (16, d/2) powers of the
+    size-d root (its inverse for the inverse transform; the caller scales)."""
+    d = x.shape[1]
+    bits = d.bit_length() - 1
+    idx = torch.arange(d, device=x.device)
+    rev = torch.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    a = x[:, rev]
+    size = 2
+    while size <= d:
+        half = size // 2
+        tw = table[:, :: d // size][:, :half]  # the size-th root's powers
+        a = a.reshape(16, d // size, 2, half)
+        lo = a[:, :, 0]
+        hi = ctx.mont_mul(a[:, :, 1], tw[:, None, :])
+        a = torch.stack([ctx.add(lo, hi), ctx.sub(lo, hi)], dim=2).reshape(16, d)
+        size *= 2
+    return a
+
+
+def _h_from_values_device(a_rows: bytes, b_rows: bytes, c_rows: bytes, d: int, device,
+                          as_scalars: bool = False):
+    """`_h_from_values` on `device`: the same coefficients, as host ints, or
+    with as_scalars as the MSM's (d, 8) device limbs."""
+    ctx = bn254.fr()
+    w = pow(5, (R - 1) // d, R)
+    fwd = _fr_powers(ctx, w, max(1, d // 2), device)
+    inv = _fr_powers(ctx, pow(w, R - 2, R), max(1, d // 2), device)
+    s = 7
+    s_pows = _fr_powers(ctx, s, d, device)
+    s_inv_pows = _fr_powers(ctx, pow(s, R - 2, R), d, device)
+    n_inv = ctx.const_mont(pow(d, R - 2, R), (1,), device)
+
+    def coeffs_on_coset(vals):
+        x = _fr_limbs(vals, d, device)
+        c = ctx.mont_mul(_fr_ntt_device(ctx, x, inv), n_inv.expand(16, d).contiguous())
+        return _fr_ntt_device(ctx, ctx.mont_mul(c, s_pows), fwd)
+
+    av, bv, cv = (coeffs_on_coset(v) for v in (a_rows, b_rows, c_rows))
+    zs_inv = ctx.const_mont(pow((pow(s, d, R) - 1) % R, R - 2, R), (1,), device)
+    h_vals = ctx.mont_mul(ctx.sub(ctx.mont_mul(av, bv), cv), zs_inv.expand(16, d).contiguous())
+    hc = ctx.mont_mul(_fr_ntt_device(ctx, h_vals, inv), n_inv.expand(16, d).contiguous())
+    out = _regular_limbs(ctx, ctx.mont_mul(hc, s_inv_pows))
+    if as_scalars:
+        return _scalar_words(out)
+    return [int(v) for v in ctx.to_int(out, mont=False)]
+
+
 def prove(pk: ProvingKey, r1cs: R1CS, witness: List[int], rng_seed: str = "ezt-groth16-r",
           *, device) -> dict:
-    """Groth16 prove; MSMs of MSM_DEVICE_THRESHOLD points or more run on
-    `device`."""
-    assert r1cs.is_satisfied(witness)
+    """Groth16 prove.  MSMs of MSM_DEVICE_THRESHOLD points or more run on
+    a CUDA device's Pippenger, and the QAP quotient's NTTs too; on the CPU
+    they run the host Pippenger.  Queries held as DevicePoints are
+    multiplied where they lie."""
+    assert len(witness) == r1cs.num_vars and witness[0] == 1
+    a_rows, b_rows, c_rows = _row_values(r1cs, witness)  # checks every constraint
     r_rand = _tau_from_seed(rng_seed, "r")
     s_rand = _tau_from_seed(rng_seed, "s")
+    on_card = torch.device(device).type == "cuda"
 
     def points_scalars(points, scalars):
         return [(p, s % R) for p, s in zip(points, scalars) if p is not None and s % R]
@@ -398,22 +789,37 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: List[int], rng_seed: str = "ezt-g
             acc = h_ec_add(acc, term, F) if F else h_ec_add(acc, term)
         return acc
 
-    def msm1(points, scalars):
+    w_dev = []  # the witness as the MSM's device limbs, made once for the device queries
+
+    def msm_any(points, scalars, g2: bool):
+        if isinstance(points, DevicePoints):
+            if scalars is witness or scalars is priv:
+                if not w_dev:
+                    w_dev.append(msm._limbs_tensor(witness, points.inf.device))
+                scalars = w_dev[0][len(witness) - len(scalars):]  # the witness or its tail
+            return msm.msm_affine(points.x, points.y, points.inf, scalars[: len(points)], g2=g2)
         pairs = points_scalars(points, scalars)
         if not pairs:
             return None
         if len(pairs) < MSM_DEVICE_THRESHOLD:
-            return _host_msm(pairs)
-        return msm.msm_g1([p for p, _ in pairs], [s for _, s in pairs], device=device)
+            return _host_msm(pairs, HOST_FQ2 if g2 else None)
+        if not on_card:
+            # the host Pippenger, as the JAX package's CPU path runs its
+            # large MSMs: the device schedule's plain versions take a
+            # minute at the MiMC wrap's 1,326 points, hours at the STARK
+            # wrap's; a window of about log2(n) - 3 bits
+            c = max(4, min(13, len(pairs).bit_length() - 3))
+            return host_pippenger([p for p, _ in pairs], [s for _, s in pairs], g2=g2, c=c)
+        run = msm.msm_g2 if g2 else msm.msm_g1
+        return run([p for p, _ in pairs], [s for _, s in pairs], device=device)
+
+    def msm1(points, scalars):
+        return msm_any(points, scalars, False)
 
     def msm2(points, scalars):
-        pairs = points_scalars(points, scalars)
-        if not pairs:
-            return None
-        if len(pairs) < MSM_DEVICE_THRESHOLD:
-            return _host_msm(pairs, HOST_FQ2)
-        return msm.msm_g2([p for p, _ in pairs], [s for _, s in pairs], device=device)
+        return msm_any(points, scalars, True)
 
+    priv = witness[pk.num_public + 1 :]
     # A = α + Σ wᵢ·Aᵢ(τ) + r·δ
     pi_a = h_ec_add(pk.alpha1, msm1(pk.a_query, witness))
     pi_a = h_ec_add(pi_a, h_ec_mul(r_rand, pk.delta1))
@@ -423,8 +829,11 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: List[int], rng_seed: str = "ezt-g
     pi_b1 = h_ec_add(pk.beta1, msm1(pk.b1_query, witness))
     pi_b1 = h_ec_add(pi_b1, h_ec_mul(s_rand, pk.delta1))
     # C = Σ_priv wᵢ·Lᵢ + Σ h_k·[τ^k Z/δ] + s·A + r·B₁ - r·s·δ
-    priv = witness[pk.num_public + 1 :]
-    h = _h_coeffs(r1cs, witness, pk.domain)
+    if on_card:
+        h = _h_from_values_device(a_rows, b_rows, c_rows, pk.domain, device,
+                                  as_scalars=isinstance(pk.h_query, DevicePoints))
+    else:
+        h = _h_from_values(a_rows, b_rows, c_rows, pk.domain)
     pi_c = msm1(pk.l_query, priv)
     pi_c = h_ec_add(pi_c, msm1(pk.h_query, h[: len(pk.h_query)]))
     pi_c = h_ec_add(pi_c, h_ec_mul(s_rand, pi_a))

@@ -14,8 +14,8 @@ package's; the trace is built in numpy on the host and the (rows, columns)
 trace goes to the device in one transfer, where `air.prove` extends,
 commits, composes and opens it.  The wrap-profile functions
 (`attest_chunk_wrap`, `wrap_attestation_instance`,
-`verify_attestation_wrap`) belong to the Poseidon2-Fr side, which is not
-ported yet, and raise NotImplementedError.
+`verify_attestation_wrap`) prove and check the same AIR under Poseidon2-Fr
+commitments (models/air_wrap.py), the form the Groth16 circuit verifies.
 
 Child proofs are chunk STARKs in the recursion-friendly zero-layer-FRI
 shape (models/stark.py with terminal_size = the LDE domain size): the
@@ -52,6 +52,7 @@ factors, so the composition quotient stays < 2n and FRI proves it on the
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -60,7 +61,7 @@ import numpy as np
 from ..ops import goldilocks as gl
 from ..ops import poseidon
 from . import air as air_m
-from . import stark
+from . import air_wrap, stark
 from .poseidon_tags import chunk_gamma
 from .transcript import Transcript
 
@@ -1343,12 +1344,6 @@ def build_verifier_trace(child_proof: dict, q_c: int):
 # attestation API
 
 
-_WRAP_NOT_PORTED = (
-    "the wrap-profile attestation (Poseidon2-Fr trees, air_wrap, the in-circuit STARK wrap) "
-    "is the next slice of the port: see ROADMAP.md, L4b"
-)
-
-
 def attest_chunk(child_proof: dict, num_queries_agg: int = 30, *, device) -> dict:
     """Prove 'this chunk proof verifies' on `device` — the recursive
     aggregation step.  Raises (via air.prove's degree gate) if the chunk
@@ -1368,39 +1363,30 @@ def attest_chunk(child_proof: dict, num_queries_agg: int = 30, *, device) -> dic
 
 def attest_chunk_wrap(child_proof: dict, num_queries_wrap: int = 2, grind_bits: int = 0,
                       ext_blowup: int = 8, *, device) -> dict:
-    raise NotImplementedError(_WRAP_NOT_PORTED)
+    """attest_chunk in the wrap profile (models/air_wrap.py), on `device`:
+    the same verifier AIR and trace, committed with Poseidon2-Fr trees so
+    that the Groth16 final circuit verifies the attestation in-circuit.
+    The wrap STARK's own soundness: num_queries_wrap FRI queries at ratio
+    ext_blowup/2 plus grind_bits of proof of work."""
+    q_c = len(child_proof["fri"]["queries"])
+    air, trace, publics, bnds = build_verifier_trace(child_proof, q_c)
+    if ext_blowup != air.ext_blowup:
+        air = dataclasses.replace(air, ext_blowup=ext_blowup)
+    air_m.stage("trace")
+    wrap_proof = air_wrap.prove_wrap(air, gl.from_int(trace, device), publics, bnds,
+                                     num_queries=num_queries_wrap, grind_bits=grind_bits)
+    return {
+        "type": "chunk-attested-wrap",
+        "q_c": q_c,
+        "header": child_header(child_proof),
+        "wrap_proof": wrap_proof,
+    }
 
 
-def wrap_attestation_instance(att: dict, expected_queries: Optional[int] = None,
-                              expected_rows: Optional[int] = None,
-                              expected_terminal: Optional[int] = None,
-                              wrap_blowup: int = 8) -> tuple:
-    raise NotImplementedError(_WRAP_NOT_PORTED)
-
-
-def verify_attestation_wrap(att: dict, expected_queries: Optional[int] = None,
-                            expected_rows: Optional[int] = None,
-                            expected_terminal: Optional[int] = None,
-                            expected_wrap_queries: Optional[int] = None,
-                            expected_wrap_grind: Optional[int] = None,
-                            wrap_blowup: int = 8) -> List[int]:
-    raise NotImplementedError(_WRAP_NOT_PORTED)
-
-
-def verify_attestation(
-    att: dict,
-    expected_queries: Optional[int] = None,
-    expected_rows: Optional[int] = None,
-    expected_terminal: Optional[int] = None,
-) -> List[int]:
-    """Check an attestation WITHOUT the child proof's openings; returns the
-    chunk digest.  Raises ValueError on any failure.
-
-    expected_queries/expected_rows MUST be pinned by the caller to the
-    protocol's chunk parameters: q_c and n are attacker-influenced fields
-    of the attestation, and a forger who could shrink the query count (or
-    the trace size) would be attesting a strictly weaker statement —
-    e.g. a 1-query check of a ground-out forged chunk proof."""
+def _pinned_instance(att: dict, expected_queries, expected_rows, expected_terminal):
+    """Pin an attestation's header to the protocol and replay the child's
+    transcript: (header, q_c, n_c, terminal, publics, boundaries).  Raises
+    ValueError on any mismatch."""
     header = att["header"]
     q_c = int(att["q_c"])
     n_c = int(header["n"])
@@ -1428,6 +1414,61 @@ def verify_attestation(
         raise ValueError("unsupported child coset shift")
     alphas, betas, indices = replay_child(header, q_c)
     publics, bnds = _instance(header, alphas, betas, indices)
+    return header, q_c, n_c, terminal, publics, bnds
+
+
+def wrap_attestation_instance(att: dict, expected_queries: Optional[int] = None,
+                              expected_rows: Optional[int] = None,
+                              expected_terminal: Optional[int] = None,
+                              wrap_blowup: int = 8) -> tuple:
+    """Pin and replay a wrap attestation's instance without verifying the
+    proof: (air, publics, boundaries).  Shared by the host checker
+    (verify_attestation_wrap) and the Groth16 circuit builder."""
+    _, q_c, n_c, terminal, publics, bnds = _pinned_instance(
+        att, expected_queries, expected_rows, expected_terminal)
+    air, _, _, _ = attestation_air(n_c, q_c, terminal)
+    if wrap_blowup != air.ext_blowup:
+        air = dataclasses.replace(air, ext_blowup=wrap_blowup)
+    return air, publics, bnds
+
+
+def verify_attestation_wrap(att: dict, expected_queries: Optional[int] = None,
+                            expected_rows: Optional[int] = None,
+                            expected_terminal: Optional[int] = None,
+                            expected_wrap_queries: Optional[int] = None,
+                            expected_wrap_grind: Optional[int] = None,
+                            wrap_blowup: int = 8, *, device) -> List[int]:
+    """Host check of a wrap-profile attestation; returns the chunk digest.
+    Raises ValueError on failure.  expected_wrap_queries /
+    expected_wrap_grind pin the wrap STARK's own soundness parameters;
+    `device` commits the AIR's constants tree (once per device)."""
+    air, publics, bnds = wrap_attestation_instance(
+        att, expected_queries, expected_rows, expected_terminal, wrap_blowup=wrap_blowup)
+    if not air_wrap.verify_wrap(air, att["wrap_proof"], publics, bnds,
+                                expected_queries=expected_wrap_queries,
+                                expected_grind_bits=expected_wrap_grind, device=device):
+        raise ValueError("wrap verifier-AIR proof rejected")
+    from ..protocol.prover_service import chunk_digest as _cd
+
+    return _cd(att["header"])
+
+
+def verify_attestation(
+    att: dict,
+    expected_queries: Optional[int] = None,
+    expected_rows: Optional[int] = None,
+    expected_terminal: Optional[int] = None,
+) -> List[int]:
+    """Check an attestation WITHOUT the child proof's openings; returns the
+    chunk digest.  Raises ValueError on any failure.
+
+    expected_queries/expected_rows MUST be pinned by the caller to the
+    protocol's chunk parameters: q_c and n are attacker-influenced fields
+    of the attestation, and a forger who could shrink the query count (or
+    the trace size) would be attesting a strictly weaker statement —
+    e.g. a 1-query check of a ground-out forged chunk proof."""
+    header, q_c, n_c, terminal, publics, bnds = _pinned_instance(
+        att, expected_queries, expected_rows, expected_terminal)
     air, _, _, _ = attestation_air(n_c, q_c, terminal)
     if not air_m.verify(air, att["air_proof"], publics, bnds):
         raise ValueError("verifier-AIR proof rejected")

@@ -13,6 +13,7 @@ hasher:
   C point_scan_step  csrc/scan_step.cu   eigen_zeth_tpu/ops/pallas/ec_pl.py:242
   D point_madd       csrc/point_madd.cu  eigen_zeth_tpu/ops/pallas/ec_pl.py:186
   E poseidon2        csrc/poseidon2_gl.cu  eigen_zeth_tpu/ops/poseidon.py:431
+  F poseidon_fr      csrc/poseidon2_fr.cu  eigen_zeth_tpu/ops/poseidon_fr.py:271
 
 A and B carry the batch proof's MSMs; C is the serial step of the fast G1
 MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
@@ -25,8 +26,14 @@ thread per state, with four entry points (`poseidon2_perm`,
 a whole Merkle tree in one launch) that share one launch count;
 ops/poseidon.py sends CUDA tensors to them and keeps the plain versions, and
 every Merkle commit of the chunk STARKs and of the AIR prover runs through
-them.  Each source notes what bounds it on the H100 and what its design
-does about it.  The sources are compiled with nvcc for sm_90a (one nvcc per
+them.  F is Poseidon2 over BN254 Fr on A's Montgomery core, one thread per
+state, with three entry points (`poseidon_fr_perm`, `poseidon_fr_hash_rows`,
+the leaf sponge over Goldilocks rows packed 3 to an Fr element, and
+`poseidon_fr_merkle_levels`, a whole tree in one launch) that share one
+launch count; it commits the wrap-profile attestation's Fr Merkle trees and
+grinds its proof of work (ops/poseidon_fr.py keeps the plain versions).
+Each source notes what bounds it on the H100 and what its design does
+about it.  The sources are compiled with nvcc for sm_90a (one nvcc per
 source, all started together) and linked into one shared library with a
 plain C interface, at first use, into `_build/<hash of the sources>/` next
 to this package, and loaded with ctypes.  `csrc/imad_probe.cu` measures the
@@ -36,7 +43,7 @@ Each wrapper takes its plain PyTorch version only for a CPU tensor.  For a
 CUDA tensor it launches the kernel or raises; nothing falls back.  Each
 launch adds one to `LAUNCHES[name]`; a point add's launch with a mask also
 adds one to `LAUNCHES[name + "_masked"]`; each of E's entry points adds one
-to `LAUNCHES["poseidon2"]`.
+to `LAUNCHES["poseidon2"]`, each of F's to `LAUNCHES["poseidon_fr"]`.
 """
 
 from __future__ import annotations
@@ -94,6 +101,11 @@ KERNELS = {
         "route": "cuda",
         "source": "eigen_zeth_tpu_torch/csrc/poseidon2_gl.cu",
         "replaces": "eigen_zeth_tpu/ops/poseidon.py:431",
+    },
+    "poseidon_fr": {
+        "route": "cuda",
+        "source": "eigen_zeth_tpu_torch/csrc/poseidon2_fr.cu",
+        "replaces": "eigen_zeth_tpu/ops/poseidon_fr.py:271",
     },
 }
 # the point adds under a mask (the scans' select): the same entries, counted
@@ -182,6 +194,11 @@ SIGNATURES = {
     "poseidon2_hash_rows": [_VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP],
     "poseidon2_hash_two": [_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP],
     "poseidon2_merkle_levels": [_VP, _LL, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
+    # kernel F's entries: tensors, sizes and strides in words, [a Montgomery
+    # capacity value], the modulus words, n0, the constants, the stream
+    "poseidon_fr_perm": [_VP, _VP, _LL, _VP, _UI, _VP, _VP],
+    "poseidon_fr_hash_rows": [_VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP, _UI, _VP, _VP],
+    "poseidon_fr_merkle_levels": [_VP, _LL, _VP, _VP, _VP, _VP, _UI, _VP, _VP],
 }
 
 
@@ -661,6 +678,127 @@ def poseidon2_merkle_levels(level: torch.Tensor) -> list[torch.Tensor]:
         _launch_poseidon2("merkle_levels", index, rows.data_ptr(), rows.stride(0),
                           rows.stride(1), n, trees, ctypes.cast(ptrs, ctypes.c_void_p),
                           tickets.data_ptr(), per_tree)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# kernel F: Poseidon2 over BN254 Fr (the plain versions are in ops/poseidon_fr.py)
+
+_fr_consts = None  # (host word arrays kept alive, the constants' address)
+FR_TREE_THREADS = 128  # csrc/poseidon2_fr.cu's block: a tree's node groups
+
+
+def poseidon_fr_const_words() -> list[int]:
+    """csrc/poseidon2_fr.cu's `FrConsts` as 32-bit words, 8 a value: the
+    full rounds' constants (8 x 12), the partial rounds' (68) and the
+    diagonal (12) in Montgomery form, then R^2 mod r (the Montgomery form
+    of R: a product by it takes a regular value into Montgomery form)."""
+    from . import bn254
+    from . import poseidon_fr as pfr
+
+    ctx = bn254.fr()
+    rc = pfr.round_constants()
+    full = [v for r in range(pfr.N_ROUNDS) if pfr._is_full_round(r) for v in rc[r]]
+    part = [rc[r][0] for r in range(pfr.N_ROUNDS) if not pfr._is_full_round(r)]
+    words = []
+    for m in [v * ctx.R_mod % ctx.q for v in full + part + pfr.internal_diag()] + [ctx.R2_mod]:
+        words += [(m >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    return words
+
+
+def _poseidon_fr_consts():
+    global _fr_consts
+    if _fr_consts is None:
+        from . import bn254
+
+        words = poseidon_fr_const_words()
+        arr = (ctypes.c_uint32 * len(words))(*words)
+        _fr_consts = (arr, ctypes.cast(arr, ctypes.c_void_p).value, _consts(bn254.fr()))
+    return _fr_consts
+
+
+def _mont_words(value: int) -> ctypes.Array:
+    from . import bn254
+
+    ctx = bn254.fr()
+    return _words(value % ctx.q * ctx.R_mod % ctx.q)
+
+
+def _launch_poseidon_fr(entry: str, index: int, *args) -> None:
+    """Launch `ezt_poseidon_fr_<entry>` on the current stream of CUDA
+    device `index` and count it under "poseidon_fr"; raise if the card
+    refuses the launch."""
+    if not _fns:
+        _load()
+    fn = _fns["poseidon_fr_" + entry]
+    _, consts, c = _poseidon_fr_consts()
+    tail = (c.q, c.n0, consts)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, *tail, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, *tail, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"poseidon_fr_{entry}: kernel launch failed with cudaError {rc}")
+    LAUNCHES["poseidon_fr"] += 1
+
+
+def poseidon_fr_perm(state: torch.Tensor) -> torch.Tensor:
+    """Kernel F on (..., 12, 4) words of canonical Fr states (CUDA int64)."""
+    index = _check_words("poseidon_fr_perm", state, 4)
+    if state.dim() < 2 or state.shape[-2] != 12:
+        raise ValueError(f"poseidon_fr_perm: expected (..., 12, 4) words, got {tuple(state.shape)}")
+    rows = state.reshape(-1, 12, 4).contiguous()
+    out = torch.empty_like(rows)
+    if rows.shape[0]:
+        _launch_poseidon_fr("perm", index, rows.data_ptr(), out.data_ptr(), rows.shape[0])
+    return out.reshape(state.shape)
+
+
+def poseidon_fr_hash_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Kernel F's leaf sponge: (n, k) canonical Goldilocks words (a CUDA
+    int64 tensor, read through its strides) -> (n, 4) words of the digests
+    `hash_elements_host(pack_gl_host(row), "leaf")`."""
+    from . import poseidon_fr as pfr
+
+    index = _check_words("poseidon_fr_hash_rows", rows)
+    if rows.dim() != 2:
+        raise ValueError(f"poseidon_fr_hash_rows: expected (n, k) rows, got {tuple(rows.shape)}")
+    n, k = rows.shape
+    out = rows.new_empty((n, 4))
+    if n:
+        cap = _mont_words(pfr.sponge_capacity("leaf", -(-k // pfr.GL_PACK)))
+        row_stride, col_stride = rows.stride()
+        _launch_poseidon_fr("hash_rows", index, rows.data_ptr(), out.data_ptr(), n, k,
+                            row_stride, col_stride, ctypes.cast(cap, ctypes.c_void_p))
+    return out
+
+
+def poseidon_fr_merkle_levels(digests: torch.Tensor) -> list[torch.Tensor]:
+    """Kernel F's tree entry: every level above (n, 4) leaf digests (a CUDA
+    int64 tensor, n a power of two) in one launch: [(n/2, 4), ..., (1, 4)];
+    no level (no launch) for n = 1."""
+    from . import poseidon_fr as pfr
+
+    index = _check_words("poseidon_fr_merkle_levels", digests, 4)
+    if digests.dim() != 2:
+        raise ValueError("poseidon_fr_merkle_levels: expected (n, 4) digests, got "
+                         f"{tuple(digests.shape)}")
+    n = digests.shape[0]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"poseidon_fr_merkle_levels: {n} digests is not a power of two")
+    levels = n.bit_length() - 1
+    outs = [torch.empty((n >> j, 4), dtype=torch.int64, device=digests.device)
+            for j in range(1, levels + 1)]
+    if levels:
+        leaves = digests.contiguous()
+        tickets = torch.zeros(max(1, n // (2 * FR_TREE_THREADS)), dtype=torch.int32,
+                              device=digests.device)
+        ptrs = (ctypes.c_void_p * levels)(*(t.data_ptr() for t in outs))
+        cap = _mont_words(pfr._sha_to_fr("ezt-pfr-sponge/node"))
+        _launch_poseidon_fr("merkle_levels", index, leaves.data_ptr(), n,
+                            ctypes.cast(ptrs, ctypes.c_void_p), tickets.data_ptr(),
+                            ctypes.cast(cap, ctypes.c_void_p))
     return outs
 
 

@@ -451,12 +451,28 @@ def _pad(points_int, scalars):
 
 
 def _limbs_tensor(scalars, device) -> torch.Tensor:
+    """(N, 8) int64 tensor of the scalars' 32-bit limbs; scalars already in
+    that form (a tensor) pass through."""
+    if isinstance(scalars, torch.Tensor):
+        return scalars.to(device)
     return torch.from_numpy(scalar_limbs(scalars).astype(np.int64)).to(device)
+
+
+# (window, point) pairs a pass of the complete-add schedule: the gathered
+# (16, W, N) planes of an MSM over millions of points (the STARK wrap's
+# Groth16) would not fit the card's memory all at once, so such an MSM runs
+# its windows a few at a time; below 2^19 points all 32 run in one pass
+WINDOW_PAIRS = 1 << 24
 
 
 def _window_sums(F, pts, scalars, c, device):
     """Affine window sums on the host; pts come padded like scalars."""
-    S = msm_window_sums(ECGroup(F), pts, digits_from_limbs(_limbs_tensor(scalars, device), c), c)
+    digits = digits_from_limbs(_limbs_tensor(scalars, device), c)
+    G = ECGroup(F)
+    group = max(1, WINDOW_PAIRS // max(1, len(scalars)))
+    parts = [msm_window_sums(G, pts, digits[g : g + group], c)
+             for g in range(0, digits.shape[0], group)]
+    S = _tmap(lambda *ls: torch.cat(ls, dim=-1), *parts)
     ax, ay = to_affine(F, S)
     return F.to_int(ax), F.to_int(ay), F.is_zero(S.z).cpu().numpy()
 
@@ -485,6 +501,30 @@ def msm_g2(points_int, scalars, c: int = DEFAULT_C, *, device):
         for w in range(len(inf))
     ]
     return _host_horner(windows, c, fq2=True)
+
+
+def msm_affine(x, y, inf: torch.Tensor, scalars, g2: bool = False, c: int = DEFAULT_C):
+    """Σ s_i·P_i by the complete-add schedule over affine points already on
+    the device (Montgomery limbs: (16, N) for G1, (c0, c1) pairs for G2;
+    inf an (N,) bool mask); affine host ints out (None = infinity).
+    scalars: host ints, or an (N, 8) int64 tensor of canonical scalars'
+    32-bit limbs on the device."""
+    F = bn254.Fq2Ops() if g2 else bn254.FqOps()
+    pad = (-inf.shape[0]) % DEFAULT_SERIAL
+    if pad:
+        x, y = (_tmap(lambda l: torch.cat([l, l.new_zeros((16, pad))], dim=1), t) for t in (x, y))
+        inf = torch.cat([inf, inf.new_ones(pad)])
+    if isinstance(scalars, torch.Tensor):
+        scalars = torch.cat([scalars, scalars.new_zeros((pad, scalars.shape[1]))])
+    else:
+        scalars = [int(s) % bn254.R for s in scalars] + [0] * pad
+    xs, ys, winf = _window_sums(F, from_affine(F, x, y, is_inf=inf), scalars, c, inf.device)
+    if g2:
+        (x0, x1), (y0, y1) = xs, ys
+        windows = [None if winf[w] else ((int(x0[w]), int(x1[w])), (int(y0[w]), int(y1[w])))
+                   for w in range(len(winf))]
+        return _host_horner(windows, c, fq2=True)
+    return _host_horner(_affine_windows(xs, ys, winf), c)
 
 
 # ---------------------------------------------------------------------------

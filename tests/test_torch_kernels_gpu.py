@@ -10,7 +10,9 @@ Inputs come from numpy with a fixed seed, at the batch proof's shapes (32
 windows x 1,326 MSM points; the scan step and the mixed add at a quarter of
 that; the G2 and masked adds at an eighth; kernel E, Poseidon2 over
 Goldilocks, on rows of every kind of length, column-major and strided
-inputs, and a tiny attestation proved on the card against the CPU's).
+inputs, and a tiny attestation proved on the card against the CPU's;
+kernel F, Poseidon2 over BN254 Fr, through its three entry points with
+edge states, and the card's grind search against the host's).
 Tolerance: none — kernel and
 plain version must agree bit for bit, and the MSMs must equal the host sum
 of scalar multiples.
@@ -505,3 +507,94 @@ def test_attestation_on_the_card_equals_the_cpu_one():
     assert kernels.LAUNCHES["poseidon2"] > 0
     assert att == recursion.attest_chunk(child, num_queries_agg=8, device=torch.device("cpu"))
     assert recursion.verify_attestation(att, expected_queries=2, expected_rows=8)
+
+
+# ---------------------------------------------------------------------------
+# kernel F: Poseidon2 over BN254 Fr
+
+
+def _fr_edge_states(rng, n):
+    """n random Fr states with edge lanes (0, 1, r - 1, 2^64 - 1, 2^192 - 1)
+    in the first rows."""
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    states = [[int.from_bytes(rng.bytes(32), "little") % pfr.R for _ in range(12)]
+              for _ in range(n)]
+    edges = [0, 1, pfr.R - 1, (1 << 64) - 1, (1 << 192) - 1]
+    for i, e in enumerate(edges):
+        states[i] = [e] * 12
+    states[len(edges)] = (edges * 3)[:12]
+    return states
+
+
+@pytest.mark.gpu
+def test_poseidon_fr_perm_kernel_matches_plain_and_host():
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    dev = _cuda()
+    rng = np.random.default_rng(21)
+    states = _fr_edge_states(rng, 300)
+    words = pfr.words_from_ints(states, dev)
+    before = kernels.LAUNCHES["poseidon_fr"]
+    got = pfr.perm_device(words)
+    assert kernels.LAUNCHES["poseidon_fr"] == before + 1
+    assert torch.equal(got, pfr.perm_fr_plain(words))
+    for i in (0, 1, 2, 3, 4, 5, 299):
+        assert pfr.ints_from_words(got[i]) == pfr.perm_host(states[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 33, 34, 216])
+def test_poseidon_fr_hash_rows_kernel_matches_plain(k):
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    dev = _cuda()
+    rng = np.random.default_rng(22 + k)
+    vals = rng.integers(0, gl.P, (256, k), dtype=np.uint64)
+    vals[0] = gl.P - 1
+    vals[1] = 0
+    rows = gl.from_int(vals, dev)
+    cols = gl.from_int(np.ascontiguousarray(vals.T), dev)  # column-major view below
+    before = kernels.LAUNCHES["poseidon_fr"]
+    got = kernels.poseidon_fr_hash_rows(rows)
+    got_t = kernels.poseidon_fr_hash_rows(cols.T)
+    assert kernels.LAUNCHES["poseidon_fr"] == before + 2
+    want = pfr.hash_rows_fr_plain(rows)
+    assert torch.equal(got, want) and torch.equal(got_t, want)
+    for i in (0, 1, 255):
+        row = [int(v) for v in vals[i]]
+        assert pfr.ints_from_words(got[i])[0] == pfr.hash_elements_host(pfr.pack_gl_host(row))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 256, 512, 1 << 12, 1 << 15])
+def test_poseidon_fr_merkle_levels_kernel_matches_plain(n):
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    leaves = pfr.words_from_ints(
+        [int.from_bytes(rng.bytes(32), "little") % pfr.R for _ in range(n)], dev)
+    before = kernels.LAUNCHES["poseidon_fr"]
+    got = kernels.poseidon_fr_merkle_levels(leaves)
+    assert kernels.LAUNCHES["poseidon_fr"] == before + 1
+    want = pfr.merkle_levels_fr_plain(leaves)
+    assert len(got) == len(want) == n.bit_length() - 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    l0 = pfr.ints_from_words(leaves[:2])
+    assert pfr.ints_from_words(got[0][:1]) == [pfr.hash_two_host(*l0)]
+
+
+@pytest.mark.gpu
+def test_poseidon_fr_grind_on_the_card_is_the_least_nonce():
+    from eigen_zeth_tpu_torch.models.transcript_fr import TranscriptFr
+
+    dev = _cuda()
+    for bits in (0, 3, 8):
+        for pad in range(0, 12):  # every lane the nonce and the label can land on
+            a, b = TranscriptFr("g"), TranscriptFr("g")
+            a.absorb("x", list(range(pad)))
+            b.absorb("x", list(range(pad)))
+            assert a.grind(bits, device=dev) == b.grind(bits, device="cpu")
+            assert (a._state, a._pos) == (b._state, b._pos)

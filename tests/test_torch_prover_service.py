@@ -12,12 +12,9 @@ the same file.  The port takes the JAX package's MiMC CRS through the
 converters, so only one setup runs; a separate test holds the port's own
 setup against the JAX one.
 
-The tiny recursion tier — 8-row chunk traces, blowup 4 / 2 queries /
-terminal 32 (zero-layer child FRI), 8 queries of the attestation STARK,
-wrap="mimc", recursion on — goes through both `BatchProver`s the same way:
-steps 1-3 (the two attestation STARKs included) byte for byte, the final
-proof against the golden file's "recursion" entry, which
-tests/test_torch_slice_golden.py holds the JAX package to.
+The tiny recursion tier is held to the JAX package the same way in
+tests/test_torch_prover_recursion_tier.py (with the helpers here), and the
+result codes of malformed input in tests/test_torch_prover_errors.py.
 
 Tolerance: none — proof strings must be byte-identical (or have the
 golden sha256).
@@ -38,7 +35,6 @@ from eigen_zeth_tpu.models import stark as jstark
 from eigen_zeth_tpu.protocol import prover_service as jps
 from eigen_zeth_tpu_torch import convert
 from eigen_zeth_tpu_torch.models import groth16, stark
-from eigen_zeth_tpu_torch.ops import goldilocks as gl
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
 
@@ -157,7 +153,7 @@ def test_final_proof_verifies_on_both_sides(slices):
 
 def test_setup_matches_jax_on_the_linear_wrap():
     r1cs = groth16.wrap_circuit()
-    pk, vk = groth16.setup(r1cs, seed="ezt-groth16-test")
+    pk, vk = groth16.setup(r1cs, seed="ezt-groth16-test", device=torch.device("cpu"))
     jpk, jvk = jgroth16.setup(jgroth16.wrap_circuit(), seed="ezt-groth16-test")
     assert pk == convert.proving_key_from(jpk)
     assert vk == convert.verifying_key_from(jvk)
@@ -174,11 +170,14 @@ def test_linear_wrap_slice_matches_jax(monkeypatch):
 
 
 def test_unported_settings_raise():
-    for kw in ({"wrap": "stark"}, {"wrap": "stark", "recursion": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ps.BatchProver(device=torch.device("cpu"), **kw)
+    """Every wrap of the JAX package is ported: an unknown wrap is refused,
+    and a malformed wrap attestation is an error, not a silent pass."""
+    for wrap in ("stark", "mimc", "linear"):
+        assert ps.BatchProver(wrap=wrap, device=torch.device("cpu")).wrap == wrap
+    with pytest.raises(ValueError, match="unknown wrap"):
+        ps.BatchProver(wrap="plonk", device=torch.device("cpu"))
     prover = _port_prover("linear")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(KeyError):
         prover._validate({"type": "chunk-attested-wrap"})
 
 
@@ -211,72 +210,6 @@ def test_recursion_needs_a_power_of_two_query_count():
     with pytest.raises(AssertionError, match="power-of-two"):
         ps.BatchProver(recursion=True, stark_params=stark.StarkParams(num_queries=30),
                        device=torch.device("cpu"))
-
-
-@pytest.fixture(scope="module")
-def recursion_slices():
-    """(JAX steps 1-3, port steps 1-4) of the tiny recursion tier."""
-    jprover, prover = _recursion_provers()
-    assert jprover.recursion and prover.recursion
-    blocks, chain = RCFG["blocks"], RCFG["chain_id"]
-    w1 = jprover.gen_batch_chunks("t", blocks, chain, "evm")
-    w2 = jprover.gen_chunk_proof("t", w1.task_id, w1.chunk_count, chain, "evm", w1.batch_data)
-    w3 = jprover.gen_aggregated_proof("t", w2.chunk_proofs[0].proof, w2.chunk_proofs[-1].proof)
-    g1 = prover.gen_batch_chunks("t", blocks, chain, "evm")
-    g2 = prover.gen_chunk_proof("t", g1.task_id, g1.chunk_count, chain, "evm", g1.batch_data)
-    g3 = prover.gen_aggregated_proof("t", g2.chunk_proofs[0].proof, g2.chunk_proofs[-1].proof)
-    g4 = prover.gen_final_proof("t", g3.result_string, "BN128", RCFG["aggregator_addr"])
-    for r in (w1, w2, w3, g1, g2, g3, g4):
-        assert r.result_code == ProofResultCode.COMPLETED_OK, r.error_message
-    return prover, (w1, w2, w3), (g1, g2, g3, g4)
-
-
-def test_recursion_steps_one_to_three_are_byte_identical(recursion_slices):
-    _, (w1, w2, w3), (g1, g2, g3, _) = recursion_slices
-    assert (g1.task_id, g1.chunk_count, g1.batch_data) == (w1.task_id, w1.chunk_count, w1.batch_data)
-    assert [c.proof for c in g2.chunk_proofs] == [c.proof for c in w2.chunk_proofs]
-    assert g3.result_string == w3.result_string
-    agg = json.loads(g3.result_string)
-    assert [k["type"] for k in agg["children"]] == ["chunk-attested"] * 2
-    assert "stark" not in agg["children"][0]  # validity rests on the attestations alone
-
-
-@pytest.mark.parametrize("part", ["chunk_proofs", "aggregated", "final_proof", "public_input"])
-def test_recursion_slice_matches_the_golden_file(recursion_slices, part):
-    _, _, (_, r2, r3, r4) = recursion_slices
-    got = {
-        "chunk_proofs": [_sha(c.proof) for c in r2.chunk_proofs],
-        "aggregated": _sha(r3.result_string),
-        "final_proof": _sha(r4.final_proof.proof),
-        "public_input": _sha(r4.final_proof.public_input),
-    }
-    assert got[part] == REC["sha256"][part]
-
-
-def test_recursion_final_step_checks_the_attestations(recursion_slices):
-    """A corrupted attestation inside the aggregated proof, a tampered chunk
-    before aggregation, and an aggregated digest that does not match all
-    come back as COMPLETED_ERROR."""
-    prover, _, (_, g2, g3, _) = recursion_slices
-    bad = json.loads(g3.result_string)
-    row = bad["children"][0]["air_proof"]["trace_openings"][0][0]["row"]
-    row[0] = str((int(row[0]) + 1) % gl.P)
-    res = prover.gen_final_proof("t", json.dumps(bad), "BN128", RCFG["aggregator_addr"])
-    assert res.result_code == ProofResultCode.COMPLETED_ERROR
-    bad = json.loads(g3.result_string)
-    bad["digest"][0] = str((int(bad["digest"][0]) + 1) % gl.P)
-    res = prover.gen_final_proof("t", json.dumps(bad), "BN128", RCFG["aggregator_addr"])
-    assert res.result_code == ProofResultCode.COMPLETED_ERROR
-    node = json.loads(g2.chunk_proofs[0].proof)
-    node["stark"]["trace_openings"][0][0]["row"][1] = "1"
-    agg = json.loads(g3.result_string)
-    res = prover.gen_aggregated_proof("t", json.dumps(agg["children"][1]), json.dumps(node))
-    assert res.result_code == ProofResultCode.COMPLETED_ERROR
-    # an attested child is taken as it is (validated, not attested again)
-    res = prover.gen_aggregated_proof("t", json.dumps(agg["children"][0]),
-                                      json.dumps(agg["children"][1]))
-    assert res.result_code == ProofResultCode.COMPLETED_OK
-    assert res.result_string == g3.result_string
 
 
 def test_protocol_errors_are_results(slices):

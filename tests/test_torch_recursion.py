@@ -168,9 +168,14 @@ def test_host_helpers_are_the_jax_ones(bundle):
 
 
 def test_wrap_profile_names_the_next_slice(bundle):
-    _, child, _, att = bundle
-    for call in (lambda: rec.attest_chunk_wrap(child, device=CPU),
-                 lambda: rec.wrap_attestation_instance(att),
-                 lambda: rec.verify_attestation_wrap(att)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+    """The wrap-profile functions are ported: the instance a wrap
+    attestation pins is the JAX package's, and a GL attestation (no wrap
+    proof) is refused by the wrap checker."""
+    _, _, jatt, att = bundle
+    air, publics, bnds = rec.wrap_attestation_instance(att, wrap_blowup=32)
+    jair, jpublics, jbnds = jrec.wrap_attestation_instance(jatt, wrap_blowup=32)
+    assert (air.n, air.n_cols, air.ext_blowup, air.name) == (jair.n, jair.n_cols, 32, jair.name)
+    assert publics == jpublics
+    assert [(b.col, b.row, b.value) for b in bnds] == [(b.col, b.row, b.value) for b in jbnds]
+    with pytest.raises(KeyError):
+        rec.verify_attestation_wrap(att, device=CPU)
