@@ -169,13 +169,21 @@ PROBED_MADS_PER_S = {"rate": INT32_MADS_PER_S}
 AGGREGATOR = "0x" + "11" * 20
 # Kernel F, Poseidon2 over BN254 Fr: 8 full rounds x 12 S-boxes and 68
 # partial rounds x 1, each S-box x^5 = two Montgomery squarings and one
-# product, and 68 x 12 products by the internal diagonal: 980 products of 136
-# multiply-adds and 328 squarings of 108 (bn254_field.cuh), the least the
-# permutation needs.  The conversions into and out of Montgomery form at the
-# kernel's boundary are not counted.
+# product, and 68 x 12 products by the internal diagonal: 980 products and
+# 328 squarings of 108 multiply-adds.  The 816 products by the diagonal are
+# products by a constant below r, which Shoup's product does in 115
+# multiply-adds (43 for the quotient, 36 each for the low halves of x·mu and
+# q·r; csrc/poseidon2_fr.cuh); the other 164 are Montgomery products of 136:
+# 151,568 multiply-adds, what the function needs (168,704 with every product
+# a Montgomery one).  The conversions into and out of Montgomery form at the
+# kernel's boundary and the linear layers' reductions are not counted.
 FR_MULS_PER_PERM = 8 * 12 + 68 * (1 + 12)
 FR_SQRS_PER_PERM = 2 * (8 * 12 + 68)
-MADS_PER_PERM_FR = FR_MULS_PER_PERM * MADS_PER_MONT_MUL + FR_SQRS_PER_PERM * MADS_PER_MONT_SQR
+FR_CONST_MULS_PER_PERM = 68 * 12
+MADS_PER_CONST_MUL = 43 + 2 * 36
+MADS_PER_PERM_FR = ((FR_MULS_PER_PERM - FR_CONST_MULS_PER_PERM) * MADS_PER_MONT_MUL
+                    + FR_CONST_MULS_PER_PERM * MADS_PER_CONST_MUL
+                    + FR_SQRS_PER_PERM * MADS_PER_MONT_SQR)
 # the wrap-profile attestation at the node's profile: the verifier AIR's
 # 2^18 x 216 trace at blowup 32, LDE 2^23 rows, 72 packed Fr elements a row
 WRAP_ROWS = 1 << 23
@@ -711,16 +719,20 @@ def _phase_poseidon_fr_kernel(device, rng) -> dict:
         return out
 
     # perm: the grind search's batch, with edge states: every lane 0, 1,
-    # r - 1, 2^64 - 1, 2^192 - 1, and mixes of them
-    edges = [0, 1, R - 1, (1 << 64) - 1, (1 << 192) - 1]
+    # r - 1, r - 2, 2^64 - 1, 2^192 - 1, or a value whose Montgomery form is
+    # r - 1 or r - 2 (the top of what the lazy core is handed: its first
+    # linear layer's sums at 64·(r - 1)), and mixes of them
+    r_inv = pow(1 << 256, -1, R)
+    edges = [0, 1, R - 1, R - 2, (1 << 64) - 1, (1 << 192) - 1,
+             (R - 1) * r_inv % R, (R - 2) * r_inv % R]
     states = [[e] * 12 for e in edges] + [list(rng.choice(np.array(edges, dtype=object), 12))
-                                          for _ in range(27)]
+                                          for _ in range(24)]
     states += [fr_ints(12) for _ in range(F_GRIND_BATCH - len(states))]
     words = pfr.words_from_ints(states, device)
     got = pfr.perm_device(words)
     plain, perm_plain_ms = timed_plain(lambda: pfr.perm_fr_plain(words))
     same("perm", got, plain)
-    for i in range(0, 32, 3):
+    for i in (*range(len(edges)), *range(len(edges), 32, 3)):
         if pfr.ints_from_words(got[i]) != pfr.perm_host(states[i]):
             raise AssertionError(f"poseidon_fr perm differs from the host permutation (state {i})")
     big = pfr.words_from_ints([fr_ints(12) for _ in range(1024)], device).repeat(F_BIG_PERM // 1024, 1, 1)

@@ -13,7 +13,8 @@ hasher:
   C point_scan_step  csrc/scan_step.cu   eigen_zeth_tpu/ops/pallas/ec_pl.py:242
   D point_madd       csrc/point_madd.cu  eigen_zeth_tpu/ops/pallas/ec_pl.py:186
   E poseidon2        csrc/poseidon2_gl.cu  eigen_zeth_tpu/ops/poseidon.py:431
-  F poseidon_fr      csrc/poseidon2_fr.cu  eigen_zeth_tpu/ops/poseidon_fr.py:271
+  F poseidon_fr      csrc/poseidon2_fr.cuh eigen_zeth_tpu/ops/poseidon_fr.py:271
+                     (its core; entries in poseidon2_fr.cu, _fr_perm.cu, _fr_tree.cu)
 
 A and B carry the batch proof's MSMs; C is the serial step of the fast G1
 MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
@@ -26,14 +27,18 @@ thread per state, with four entry points (`poseidon2_perm`,
 a whole Merkle tree in one launch) that share one launch count;
 ops/poseidon.py sends CUDA tensors to them and keeps the plain versions, and
 every Merkle commit of the chunk STARKs and of the AIR prover runs through
-them.  F is Poseidon2 over BN254 Fr on A's Montgomery core, one thread per
+them.  F is Poseidon2 over BN254 Fr on its own lazy Montgomery core
+(csrc/poseidon2_fr.cuh: values kept in ranges above r instead of reduced
+after every operation, Shoup's product by the diagonal), one thread per
 state, with three entry points (`poseidon_fr_perm`, `poseidon_fr_hash_rows`,
 the leaf sponge over Goldilocks rows packed 3 to an Fr element, and
 `poseidon_fr_merkle_levels`, a whole tree in one launch) that share one
 launch count; it commits the wrap-profile attestation's Fr Merkle trees and
 grinds its proof of work (ops/poseidon_fr.py keeps the plain versions).
 Each source notes what bounds it on the H100 and what its design does
-about it.  The sources are compiled with nvcc for sm_90a (one nvcc per
+about it (F's three entry points are three sources, poseidon2_fr.cu,
+poseidon2_fr_perm.cu and poseidon2_fr_tree.cu, so that they compile side by
+side).  The sources are compiled with nvcc for sm_90a (one nvcc per
 source, all started together) and linked into one shared library with a
 plain C interface, at first use, into `_build/<hash of the sources>/` next
 to this package, and loaded with ctypes.  `csrc/imad_probe.cu` measures the
@@ -104,7 +109,9 @@ KERNELS = {
     },
     "poseidon_fr": {
         "route": "cuda",
-        "source": "eigen_zeth_tpu_torch/csrc/poseidon2_fr.cu",
+        # the core that the three entries' sources (poseidon2_fr.cu,
+        # poseidon2_fr_perm.cu, poseidon2_fr_tree.cu) share
+        "source": "eigen_zeth_tpu_torch/csrc/poseidon2_fr.cuh",
         "replaces": "eigen_zeth_tpu/ops/poseidon_fr.py:271",
     },
 }
@@ -685,14 +692,16 @@ def poseidon2_merkle_levels(level: torch.Tensor) -> list[torch.Tensor]:
 # kernel F: Poseidon2 over BN254 Fr (the plain versions are in ops/poseidon_fr.py)
 
 _fr_consts = None  # (host word arrays kept alive, the constants' address)
-FR_TREE_THREADS = 128  # csrc/poseidon2_fr.cu's block: a tree's node groups
+FR_TREE_THREADS = 128  # csrc/poseidon2_fr_launch.cuh's block: a tree's node groups
 
 
 def poseidon_fr_const_words() -> list[int]:
-    """csrc/poseidon2_fr.cu's `FrConsts` as 32-bit words, 8 a value: the
+    """csrc/poseidon2_fr.cuh's `Consts` as 32-bit words, 8 a value: the
     full rounds' constants (8 x 12), the partial rounds' (68) and the
     diagonal (12) in Montgomery form, then R^2 mod r (the Montgomery form
-    of R: a product by it takes a regular value into Montgomery form)."""
+    of R: a product by it takes a regular value into Montgomery form), then
+    the diagonal in regular form (12) and its Shoup quotients
+    floor(mu_i·2^256 / r) (12)."""
     from . import bn254
     from . import poseidon_fr as pfr
 
@@ -701,7 +710,9 @@ def poseidon_fr_const_words() -> list[int]:
     full = [v for r in range(pfr.N_ROUNDS) if pfr._is_full_round(r) for v in rc[r]]
     part = [rc[r][0] for r in range(pfr.N_ROUNDS) if not pfr._is_full_round(r)]
     words = []
-    for m in [v * ctx.R_mod % ctx.q for v in full + part + pfr.internal_diag()] + [ctx.R2_mod]:
+    diag = pfr.internal_diag()
+    for m in ([v * ctx.R_mod % ctx.q for v in full + part + diag] + [ctx.R2_mod] + diag
+              + [(v << 256) // ctx.q for v in diag]):
         words += [(m >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
     return words
 

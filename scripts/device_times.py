@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of kernels A, B, C, D and E of the port, for one checkout or
-several in turn, on one NVIDIA GPU.
+"""Device times of kernels A, B, C, D, E and F of the port, for one checkout
+or several in turn, on one NVIDIA GPU.
 
     python3 scripts/device_times.py [ROOT ...]
 
@@ -18,9 +18,16 @@ attestation's (2^21, 216) rows, column-major as the AIR prover hands them
 over, `poseidon.hash_two` on a Merkle level of 2^20 strided pairs,
 `merkle.commit_digests` over 2^21 leaves (a whole tree, every launch it
 makes), with random canonical words; and the host's cost of one
-`hash_two` on 1,024 pairs (host clock around 200 calls).  Only the calls
-that every version of the port has are used: the unmasked wrappers and the
-Poseidon2 and Merkle functions.
+`hash_two` on 1,024 pairs (host clock around 200 calls).  Kernel F
+(Poseidon2 over BN254 Fr) through its three wrappers: `poseidon_fr_perm` on
+2^14 states (the grind search's batch) and on 2^18, `poseidon_fr_hash_rows`
+on the wrap attestation's (2^23, 216) rows, column-major, and
+`poseidon_fr_merkle_levels` over 2^23 leaves (a whole tree, one launch)
+and over 2^15, 2^16 and 2^17 leaves (the top 15, 16 and 17 levels of the
+big tree; a level of at most 2^15 nodes is narrower than the H100's 33,792
+resident threads), with random canonical words; and the host's cost of one launch of each on 256
+states, rows or leaves.  Only the calls that every version of the port
+has are used: the unmasked wrappers and the Poseidon2 and Merkle functions.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ from pathlib import Path
 
 BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
 E_PERMS, E_ROWS, E_COLS = 1 << 18, 1 << 21, 216
+F_PERMS, F_ROWS = (1 << 14, 1 << 18), 1 << 23
+F_TOP_LEAVES = (1 << 15, 1 << 16, 1 << 17)
+FR_TOP = 0x30644E72E131A029  # the top 64-bit word of r: words below it are canonical
 
 
 def measure(root: str) -> dict:
@@ -107,6 +117,30 @@ def measure(root: str) -> dict:
     out["poseidon2_tree"] = time_ms(lambda: merkle.commit_digests(level), reps=5)
     small = level[:2048]
     out["poseidon2_host_us"] = host_us(lambda: poseidon.hash_two(small[0::2], small[1::2]))
+    del level, small
+
+    def fr_words(*shape):  # canonical Fr values, four words each
+        t = words(*shape, 4)
+        t[..., 3] = torch.randint(0, FR_TOP, shape, generator=gen, device=dev)
+        return t
+
+    for n in F_PERMS:
+        states = fr_words(n, 12)
+        out[f"poseidon_fr_perm_{n}"] = time_ms(lambda: kernels.poseidon_fr_perm(states))
+    out["poseidon_fr_perm_host_us"] = host_us(lambda: kernels.poseidon_fr_perm(states[:256]))
+    del states
+    wide = words(E_COLS, F_ROWS).T  # column-major rows
+    out["poseidon_fr_hash_rows"] = time_ms(lambda: kernels.poseidon_fr_hash_rows(wide), reps=1)
+    out["poseidon_fr_hash_rows_host_us"] = host_us(
+        lambda: kernels.poseidon_fr_hash_rows(wide[:256]))
+    del wide
+    leaves = fr_words(F_ROWS)
+    out["poseidon_fr_tree"] = time_ms(lambda: kernels.poseidon_fr_merkle_levels(leaves), reps=2)
+    for n in F_TOP_LEAVES:
+        top = leaves[:n]
+        out[f"poseidon_fr_tree_{n}"] = time_ms(lambda: kernels.poseidon_fr_merkle_levels(top))
+    out["poseidon_fr_tree_host_us"] = host_us(
+        lambda: kernels.poseidon_fr_merkle_levels(leaves[:256]))
     return out
 
 

@@ -598,3 +598,55 @@ def test_poseidon_fr_grind_on_the_card_is_the_least_nonce():
             b.absorb("x", list(range(pad)))
             assert a.grind(bits, device=dev) == b.grind(bits, device="cpu")
             assert (a._state, a._pos) == (b._state, b._pos)
+
+
+def _fr_lazy_top_values():
+    """Canonical Fr values aimed at kernel F's lazy ranges (csrc/poseidon2_fr.cuh):
+    values whose Montgomery form is r - 1 or r - 2 (the largest words the
+    core is handed, so the first M_E's nine-word sums sit at 64·(r - 1) and
+    its `reduce` near its top), r - 1, r - 2, 0, 1, 2^64 - 1, 2^192 - 1."""
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    r_inv = pow(1 << 256, -1, pfr.R)
+    return [(pfr.R - 1) * r_inv % pfr.R, (pfr.R - 2) * r_inv % pfr.R, pfr.R - 1, pfr.R - 2, 0, 1,
+            (1 << 64) - 1, (1 << 192) - 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["perm", "hash_rows", "merkle_levels"])
+def test_poseidon_fr_lazy_top_states_match_plain_and_host(entry):
+    """The three entries on inputs at the top of the core's lazy ranges: every
+    lane (leaf) one of `_fr_lazy_top_values` or a mix of them; Goldilocks
+    rows of p - 1 (the largest packed elements) and of p - 1 and 0 mixed."""
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+    from eigen_zeth_tpu_torch.ops import poseidon_fr as pfr
+
+    dev = _cuda()
+    rng = np.random.default_rng(24)
+    top = _fr_lazy_top_values()
+    if entry == "perm":
+        states = [[v] * 12 for v in top]
+        states += [[top[int(j)] for j in rng.integers(0, len(top), 12)] for _ in range(120)]
+        words = pfr.words_from_ints(states, dev)
+        got = kernels.poseidon_fr_perm(words)
+        assert torch.equal(got, pfr.perm_fr_plain(words))
+        for i in range(0, len(states), 9):
+            assert pfr.ints_from_words(got[i]) == pfr.perm_host(states[i])
+    elif entry == "hash_rows":
+        for k in (1, 3, 11, 33, 34, 216):
+            vals = np.full((64, k), gl.P - 1, dtype=np.uint64)
+            vals[32:] *= rng.integers(0, 2, (32, k), dtype=np.uint64)  # p - 1 and 0 mixed
+            rows = gl.from_int(vals, dev)
+            got = kernels.poseidon_fr_hash_rows(rows)
+            assert torch.equal(got, pfr.hash_rows_fr_plain(rows))
+            for i in (0, 32, 63):
+                row = [int(v) for v in vals[i]]
+                assert pfr.ints_from_words(got[i])[0] == pfr.hash_elements_host(pfr.pack_gl_host(row))
+    else:
+        leaves = [top[i % len(top)] for i in range(64)] + [top[0]] * 64
+        words = pfr.words_from_ints(leaves, dev)
+        got = kernels.poseidon_fr_merkle_levels(words)
+        want = pfr.merkle_levels_fr_plain(words)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        for i in (0, 3, 40):
+            assert pfr.ints_from_words(got[0][i : i + 1]) == [pfr.hash_two_host(*leaves[2 * i : 2 * i + 2])]

@@ -148,11 +148,15 @@ def test_constant_words_are_montgomery_forms():
     vals = [sum(words[8 * i + j] << (32 * j) for j in range(8)) for i in range(len(words) // 8)]
     ctx = bn254.fr()
     rc = pfr.round_constants()
-    assert len(vals) == 8 * 12 + 68 + 12 + 1
+    diag = pfr.internal_diag()
+    assert len(vals) == 8 * 12 + 68 + 12 + 1 + 12 + 12
     assert vals[0] == rc[0][0] * ctx.R_mod % R
     assert vals[8 * 12] == rc[4][0] * ctx.R_mod % R
-    assert vals[-2] == pfr.internal_diag()[-1] * ctx.R_mod % R
-    assert vals[-1] == ctx.R2_mod
+    assert vals[176 - 1] == diag[-1] * ctx.R_mod % R
+    assert vals[176] == ctx.R2_mod
+    # then the diagonal in regular form and its Shoup quotients
+    assert vals[177:189] == diag
+    assert vals[189:] == [(v << 256) // R for v in diag]
 
 
 def test_fr_limb_planes_convert_to_words():
@@ -168,11 +172,12 @@ def test_fr_limb_planes_convert_to_words():
 
 
 def test_multiply_add_count_of_the_bound_matches_the_permutation(monkeypatch):
-    """chip_smoke.py bounds kernel F by 980 Montgomery products and 328
-    squarings a permutation (MADS_PER_PERM_FR): the plain permutation, a
-    copy of the JAX package's `_perm_device_run`, makes exactly 1,308
-    products a state (the squarings among them: x·x), besides the 24 that
-    enter and leave Montgomery form."""
+    """chip_smoke.py bounds kernel F by 980 products and 328 squarings a
+    permutation (MADS_PER_PERM_FR, the 816 products by the diagonal counted
+    as products by a constant): the plain permutation, a copy of the JAX
+    package's `_perm_device_run`, makes exactly 1,308 products a state (the
+    squarings among them: x·x), besides the 24 that enter and leave
+    Montgomery form."""
     import chip_smoke
 
     ctx = pfr._ctx()
@@ -190,4 +195,6 @@ def test_multiply_add_count_of_the_bound_matches_the_permutation(monkeypatch):
     pfr.perm_fr_plain(pfr.words_from_ints([list(range(12))], CPU))
     assert counts["products"] - 24 == chip_smoke.FR_MULS_PER_PERM + chip_smoke.FR_SQRS_PER_PERM
     assert counts["squarings"] == chip_smoke.FR_SQRS_PER_PERM
-    assert chip_smoke.MADS_PER_PERM_FR == 980 * 136 + 328 * 108 == 168_704
+    # 68 x 12 of the products are by the diagonal: products by a constant, of 115
+    assert chip_smoke.FR_CONST_MULS_PER_PERM == pfr.WIDTH * pfr.PARTIAL_ROUNDS
+    assert chip_smoke.MADS_PER_PERM_FR == 164 * 136 + 816 * 115 + 328 * 108 == 151_568
