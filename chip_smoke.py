@@ -6,7 +6,7 @@
 Drives the port's main paths (`eigen_zeth_tpu_torch`) on the card through
 the entry points a user calls, and checks every stage:
 
-  1. the card (nvidia-smi name and power limit), torch and CUDA versions
+  1. the card (nvidia-smi name and power limit), torch, CUDA and grpc versions
   2. builds the CUDA kernels from eigen_zeth_tpu_torch/csrc with nvcc and
      times the integer-rate probe beside the rate the bounds assume
   3. holds each kernel against its plain PyTorch version, bit for bit, at
@@ -58,18 +58,27 @@ the entry points a user calls, and checks every stage:
      aggregated digest, the final proof with groth16.verify, and that
      kernel E was launched in steps 2 and 3, at most 60 times an
      attestation
- 10. the node's default, sound final wrap at the node's configuration:
-     `BatchProver(recursion=True, wrap="stark")`, the production chunk shape
-     and wrap profile (11 queries, 12 grinding bits, blowup 32, two
-     leaves), 1,600 blocks (2 chunks).  `ensure_wrap_crs` first, into a
-     scratch directory, timed by stage; then the four steps, step 3 by
-     stage, step 4 by part; checks every chunk proof, every wrap
+ 10. the node's default, sound final wrap at the node's configuration, as a
+     deployment reaches it: a stand-in L2 (a stdlib JSON-RPC server on
+     loopback) serves block 1, 168 legacy transactions from L2_SEED whose
+     packing is 2 chunks, and its parent; the prover process's own code
+     (`cli.cmd_prover` on `prover --final-wrap stark --device cuda`) serves
+     ProverService over gRPC in this process, `ChainExecutor` reading that
+     L2, on `BatchProver(recursion=True, wrap="stark")` with the production
+     chunk shape and wrap profile (11 queries, 12 grinding bits, blowup 32,
+     two leaves).  `ensure_wrap_crs` first, on the server's prover, into a
+     scratch directory, timed by stage; then the node side,
+     `ProverPipeline(MemDb(), RemoteBatchProver(addr))`, drives the four
+     steps over the wire: each step's wall on the server (synchronised) and
+     on the node, its launches and the bytes of its request and response;
+     step 3 by stage, step 4 by part.  Checks every chunk proof, every wrap
      attestation with verify_attestation_wrap under the pinned profile, the
-     public input against the statement hash of the headers,
-     groth16.verify under the pinned VK, a forged pi_c rejected, a
-     corrupted attestation giving COMPLETED_ERROR, the device fixed-base
-     against the host's on 2^14 G1 and 2^10 G2 scalars, and kernel F
-     launched in step 3 (at most F_STEP3_MOST times)
+     state roots and the public input against the served headers,
+     groth16.verify under the pinned VK, a forged pi_c rejected, a corrupted
+     attestation giving COMPLETED_ERROR over the wire, GetStatus afterwards
+     on a second client (STATUS_IDLE, the final step's request id), the
+     device fixed-base against the host's on 2^14 G1 and 2^10 G2 scalars,
+     and kernel F launched in step 3 (at most F_STEP3_MOST times)
 
 Before each of the paths 5-10 the launch counts are set to 0, and read just
 after: every kernel of that path must have been launched, and Montgomery
@@ -84,6 +93,7 @@ from __future__ import annotations
 import base64
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -94,7 +104,7 @@ import numpy as np
 import torch
 
 from eigen_zeth_tpu_torch.models import air, groth16, kzg, merkle, recursion, stark
-from eigen_zeth_tpu_torch.ops import bn254, kernels, msm, poseidon
+from eigen_zeth_tpu_torch.ops import bn254, keccak, kernels, msm, poseidon
 from eigen_zeth_tpu_torch.ops import goldilocks as gl
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
@@ -193,8 +203,131 @@ F_PLAIN_LEAVES = 1 << 10  # leaves of the subtree the plain version commits
 F_GRIND_BATCH = 1 << 14  # states of one batch of the card's grind search
 F_BIG_PERM = 1 << 18
 F_STEP3_MOST = 100  # kernel F launches step 3 may take (2 attestations)
-STARK_WRAP_BLOCKS = 1600  # 2 chunks: one aggregation pair, the final circuit's two leaves
 STARK_GOLDEN = ROOT / "tests" / "data" / "torch_stark_wrap_golden.json"
+
+
+# The stand-in L2 of the stark-wrap phase: block L2_BLOCK holds L2_TXS legacy
+# transactions, whose packing (with the two state roots) is 2 chunks of 4,094
+# elements, as the JAX sequencer's blocks carry them; its parent is block
+# L2_BLOCK - 1.  Made from L2_SEED.
+L2_SEED = 20261017
+L2_BLOCK = 1
+L2_TXS = 168
+SECP256K1_N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+# calldata selectors: ERC-20 transfer and approve, Uniswap V2 swapExactTokensForTokens
+ERC20_TRANSFER, ERC20_APPROVE, SWAP_EXACT = "a9059cbb", "095ea7b3", "38ed1739"
+
+
+def l2_blocks(seed: int, chain_id: int = CHAIN_ID) -> dict:
+    """{number: block} of the stand-in L2, as eth_getBlockByNumber(n, true)
+    returns them: the parent block (no transactions) and block L2_BLOCK with
+    L2_TXS signed legacy transactions (EIP-155 v) from 12 senders, nonces in
+    order: half ETH transfers, three tenths ERC-20 transfers, a tenth ERC-20
+    approvals and a tenth Uniswap V2 swaps, each with the gas its kind takes."""
+    rng = np.random.default_rng(seed)
+
+    def addr() -> str:
+        return "0x" + rng.bytes(20).hex()
+
+    def word(v: int) -> str:
+        return f"{v:064x}"
+
+    senders = [addr() for _ in range(12)]
+    tokens, router = [addr() for _ in range(4)], addr()
+    nonces = {a: int(rng.integers(0, 5000)) for a in senders}
+    txs = []
+    for i in range(L2_TXS):
+        sender = senders[int(rng.integers(0, len(senders)))]
+        kind = rng.choice(["transfer", "erc20", "approve", "swap"], p=[0.5, 0.3, 0.1, 0.1])
+        amount = int(rng.integers(1, 1 << 62)) * int(rng.integers(1, 1000))
+        to, value, data, gas = addr(), amount, "", 21000
+        if kind == "erc20":
+            to, value, gas = tokens[int(rng.integers(0, 4))], 0, 65000
+            data = ERC20_TRANSFER + word(int(addr(), 16)) + word(amount)
+        elif kind == "approve":
+            to, value, gas = tokens[int(rng.integers(0, 4))], 0, 46000
+            data = ERC20_APPROVE + word(int(router, 16)) + word((1 << 256) - 1)
+        elif kind == "swap":
+            a, b = rng.choice(4, 2, replace=False)
+            to, value, gas = router, 0, 180000
+            data = (SWAP_EXACT + word(amount) + word(amount // 2) + word(0xA0)
+                    + word(int(sender, 16)) + word(1_800_000_000) + word(2)
+                    + word(int(tokens[a], 16)) + word(int(tokens[b], 16)))
+        tx = {
+            "from": sender, "nonce": hex(nonces[sender]),
+            "gasPrice": hex(int(rng.integers(1, 60)) * 10**9 + int(rng.integers(0, 10**9))),
+            "gas": hex(gas), "to": to, "value": hex(value), "input": "0x" + data,
+            "chainId": hex(chain_id),
+            "v": hex(2 * chain_id + 35 + int(rng.integers(0, 2))),
+            "r": hex(int.from_bytes(rng.bytes(32), "big") % SECP256K1_N),
+            "s": hex(int.from_bytes(rng.bytes(32), "big") % (SECP256K1_N // 2)),
+            "blockNumber": hex(L2_BLOCK), "transactionIndex": hex(i),
+        }
+        nonces[sender] += 1
+        tx["hash"] = "0x" + keccak.keccak256_host(json.dumps(tx, sort_keys=True).encode()).hex()
+        txs.append(tx)
+
+    def block(n: int, transactions: list) -> dict:
+        return {"number": hex(n), "hash": "0x" + rng.bytes(32).hex(),
+                "parentHash": "0x" + rng.bytes(32).hex(), "stateRoot": "0x" + rng.bytes(32).hex(),
+                "timestamp": hex(1_760_000_000 + 2 * n), "gasLimit": hex(30_000_000),
+                "gasUsed": hex(sum(int(t["gas"], 16) for t in transactions)),
+                "transactions": transactions}
+
+    return {L2_BLOCK - 1: block(L2_BLOCK - 1, []), L2_BLOCK: block(L2_BLOCK, txs)}
+
+
+class StandInL2:
+    """An L2 node's JSON-RPC as far as the prover reads it: a stdlib HTTP
+    server on loopback answering eth_getBlockByNumber for the blocks it
+    holds (null for any other, transaction hashes unless full ones are
+    asked for).  A context manager: `url` while it serves."""
+
+    def __init__(self, blocks: dict):
+        self.blocks = blocks
+
+    def _answer(self, method: str, params: list):
+        if method != "eth_getBlockByNumber":
+            raise KeyError(method)
+        blk = self.blocks.get(int(params[0], 16))
+        if blk is None or params[1]:
+            return blk
+        return dict(blk, transactions=[t["hash"] for t in blk["transactions"]])
+
+    def __enter__(self) -> "StandInL2":
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                req = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                try:
+                    out = {"result": outer._answer(req["method"], req["params"])}
+                except KeyError as e:
+                    out = {"error": {"code": -32601, "message": f"method not found: {e}"}}
+                body = json.dumps({"jsonrpc": "2.0", "id": req["id"], **out}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        return self
+
+    def __exit__(self, *exc):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join()
+        return False
 
 
 def log(msg: str) -> None:
@@ -336,6 +469,19 @@ class scratch_dir:
         return False
 
 
+def timed_step(step: str, fn, times: dict, step_launches: dict | None):
+    """fn() synchronised and timed into times[step]; its own launch counts
+    into step_launches[step] where given."""
+    before = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    times[step] = time.perf_counter() - t
+    if step_launches is not None:
+        step_launches[step] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    return result
+
+
 def drive(prover, blocks, step_launches: dict | None = None, aggregator: str = AGGREGATOR):
     """The four steps, in the order the node's state machine drives them;
     step 3 aggregates the first and last chunk proofs.  Every step is
@@ -344,13 +490,7 @@ def drive(prover, blocks, step_launches: dict | None = None, aggregator: str = A
     times = {}
 
     def run(step, fn):
-        before = dict(kernels.LAUNCHES)
-        t = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        times[step] = time.perf_counter() - t
-        if step_launches is not None:
-            step_launches[step] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        result = timed_step(step, fn, times, step_launches)
         _check(result)
         return result
 
@@ -372,7 +512,13 @@ def phase_environment() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
-    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+    # the prover server's transport (phase 10); the module imports grpc itself,
+    # with gRPC's fork handlers off (they aborted the forked Groth16 workers)
+    from eigen_zeth_tpu_torch.protocol import grpc_shim
+
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"grpc {grpc_shim.grpc.__version__} "
+        f"(GRPC_ENABLE_FORK_SUPPORT={os.environ['GRPC_ENABLE_FORK_SUPPORT']})")
 
 
 def phase_build(device) -> None:
@@ -1280,124 +1426,226 @@ class timed_funcs:
         return sum(s for n, _, s in self.times if n == name)
 
 
+STEPS = ("gen_batch_chunks", "gen_chunk_proof", "gen_aggregated_proof", "gen_final_proof")
+
+
+class serve_steps:
+    """While active, each of the server prover's four steps is synchronised
+    and timed on the handler thread, and its launch counts and its result
+    kept (the last call of each step)."""
+
+    def __init__(self, prover):
+        self.prover = prover
+        self.times, self.launches, self.results = {}, {}, {}
+
+    def __enter__(self):
+        for step in STEPS:
+            def run(*args, _fn=getattr(self.prover, step), _step=step):
+                self.results[_step] = timed_step(_step, lambda: _fn(*args), self.times,
+                                                 self.launches)
+                return self.results[_step]
+            setattr(self.prover, step, run)
+        return self
+
+    def __exit__(self, *exc):
+        for step in STEPS:
+            delattr(self.prover, step)
+        return False
+
+
+def log_wire(node, wire: list) -> None:
+    """On the node's client: each request's step, id, serialized bytes of
+    request and response, and the node's wall from sending to receiving."""
+    request = node.client.request
+
+    def logged(build):
+        sent = []
+
+        def fill(req):
+            build(req)
+            sent.append(req)
+
+        t = time.perf_counter()
+        resp = request(fill)
+        wall = time.perf_counter() - t
+        req = sent[-1]
+        step = req.WhichOneof("request_type")
+        if step == "gen_batch_proof":
+            step = req.gen_batch_proof.WhichOneof("step")
+        wire.append({"step": step, "id": req.id, "request_bytes": req.ByteSize(),
+                     "response_bytes": resp.ByteSize(), "node_s": wall})
+        return resp
+
+    node.client.request = logged
+
+
 def phase_stark_wrap(device) -> dict:
-    """The node's default, sound final wrap at the node's configuration:
-    `BatchProver(recursion=True, wrap="stark")` with the production chunk
-    shape and the default wrap profile (11 queries, 12 grinding bits, blowup
-    32, two leaves), 1,600 blocks (2 chunks).  The CRS is made first, as a
-    deployment does once (`ensure_wrap_crs`, into a fresh directory), then
-    the four steps run as a node drives them."""
+    """The node's default, sound final wrap at the node's configuration,
+    reached as a deployment reaches it.  A stand-in L2 serves block L2_BLOCK
+    and its parent over JSON-RPC on loopback; the prover process's own code
+    (`cli.cmd_prover` on the parsed `prover --final-wrap stark --device
+    cuda` command) serves ProverService over gRPC in this process, with
+    `ChainExecutor` reading that L2: `BatchProver(recursion=True,
+    wrap="stark")`, the production chunk shape and the default wrap profile
+    (11 queries, 12 grinding bits, blowup 32, two leaves).  The CRS is made
+    first on the server's prover, as a deployment does once
+    (`ensure_wrap_crs`, into a fresh directory); then the node side, the
+    state machine `ProverPipeline` over `RemoteBatchProver`, drives the four
+    steps over the wire."""
+    from eigen_zeth_tpu_torch import cli
     from eigen_zeth_tpu_torch.models import crs, wrap_circuit
+    from eigen_zeth_tpu_torch.protocol.grpc_gen.prover.v1 import prover_pb2 as pb
+    from eigen_zeth_tpu_torch.protocol.grpc_shim import RemoteBatchProver
+    from eigen_zeth_tpu_torch.protocol.kv import MemDb
+    from eigen_zeth_tpu_torch.protocol.state_machine import ProverPipeline
 
-    with scratch_dir() as crs_dir:
-        prover = ps.BatchProver(recursion=True, wrap="stark", crs_dir=crs_dir, device=device)
-        sp = prover.stark_params
-        shape = (prover.chunk_trace_rows, sp.blowup, sp.num_queries, sp.terminal_size,
-                 prover.wrap_queries, prover.wrap_grind_bits, prover.wrap_blowup,
-                 prover.max_wrap_leaves)
-        if shape != (4096, 4, 32, 64, 11, 12, 32, 2):
-            raise AssertionError(f"not the node's configuration: {shape}")
-
-        stages, last = [], [0.0]
-
-        def on_stage(name: str) -> None:
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stages.append((name, now - last[0], torch.cuda.max_memory_allocated(device)))
-            last[0] = now
-
-        attest = recursion.attest_chunk_wrap
-
-        def attest_from_now(*args, **kwargs):
-            torch.cuda.synchronize()
-            last[0] = time.perf_counter()  # the trace build starts here
-            return attest(*args, **kwargs)
-
-        sizes = []
-        build = wrap_circuit.build_final_circuit
-
-        def build_counted(*args, **kwargs):
-            out = build(*args, **kwargs)
-            sizes.append((len(out[0].constraints), out[0].num_vars))
-            return out
-
-        targets = ((stark, "prove_chunk"), (wrap_circuit, "build_final_circuit"),
-                   (crs, "generate"), (groth16, "_lagrange_at"), (groth16, "fixed_base_device"),
-                   (crs, "save"), (crs, "load"), (groth16, "_row_values"),
-                   (groth16, "_h_from_values_device"), (msm, "msm_affine"), (groth16, "prove"),
-                   (groth16, "verify"))
-        torch.cuda.reset_peak_memory_stats(device)
-        air.STAGE_HOOK, recursion.attest_chunk_wrap = on_stage, attest_from_now
-        wrap_circuit.build_final_circuit = build_counted
+    blocks = l2_blocks(L2_SEED)
+    with scratch_dir() as crs_dir, StandInL2(blocks) as l2:
+        args = cli.build_parser().parse_args([
+            "prover", "--port", "0", "--l2-addr", l2.url, "--final-wrap", "stark",
+            "--crs-dir", crs_dir, "--device", "cuda"])
+        server = cli.cmd_prover(args, wait=False)
+        addr = f"127.0.0.1:{server.port}"
+        node = RemoteBatchProver(addr)
         try:
-            with timed_funcs(targets) as crs_calls:
-                kernels.reset_launches()
-                t = time.perf_counter()
-                prover.ensure_wrap_crs(AGGREGATOR)
-                torch.cuda.synchronize()
-                t_crs = time.perf_counter() - t
-                crs_launches = dict(kernels.LAUNCHES)
-            crs_stages = list(stages)
-            stages.clear()
-            crs_peak = torch.cuda.max_memory_allocated(device)
-            torch.cuda.reset_peak_memory_stats(device)
-            prover._stark_crs.clear()  # step 4 loads the CRS from its files, as a node does
-            steps = {}
-            with timed_funcs(targets) as calls:
-                kernels.reset_launches()
-                r1, r2, r3, r4, times = drive(prover, list(range(1, STARK_WRAP_BLOCKS + 1)), steps)
-            launches = dict(kernels.LAUNCHES)
-        finally:
-            air.STAGE_HOOK, recursion.attest_chunk_wrap = None, attest
-            wrap_circuit.build_final_circuit = build
-        peak = torch.cuda.max_memory_allocated(device)
+            prover = server.prover
+            sp = prover.stark_params
+            shape = (prover.chunk_trace_rows, sp.blowup, sp.num_queries, sp.terminal_size,
+                     prover.wrap_queries, prover.wrap_grind_bits, prover.wrap_blowup,
+                     prover.max_wrap_leaves, prover.device.type)
+            if shape != (4096, 4, 32, 64, 11, 12, 32, 2, "cuda"):
+                raise AssertionError(f"not the node's configuration: {shape}")
 
-        # gates
-        if r1.chunk_count != 2 or len(r2.chunk_proofs) != 2:
-            raise AssertionError(f"expected 2 chunks, got {r1.chunk_count}")
-        chunks = [json.loads(c.proof)["stark"] for c in r2.chunk_proofs]
-        for i, proof in enumerate(chunks):
-            if proof["n"] != 4096 or not stark.verify_chunk(proof, sp):
-                raise AssertionError(f"chunk proof {i} does not verify")
-        agg = json.loads(r3.result_string)
-        if [k["type"] for k in agg["children"]] != ["chunk-attested-wrap"] * 2:
-            raise AssertionError("step 3 did not make wrap-profile attestations")
-        t = time.perf_counter()
-        stmts = []
-        for i, att in enumerate(agg["children"]):
-            p = att["wrap_proof"]
-            if (p["n"], p["n_cols"], p["ext_blowup"], p["num_queries"], p["grind_bits"]) != (
-                    1 << 18, ATT_COLS, 32, 11, 12):
-                raise AssertionError(f"wrap attestation {i} has not the node's profile")
-            digest = recursion.verify_attestation_wrap(
-                att, expected_queries=32, expected_rows=4096, expected_terminal=64,
-                expected_wrap_queries=11, expected_wrap_grind=12, wrap_blowup=32, device=device)
-            if digest != ps.chunk_digest(chunks[i]):
-                raise AssertionError(f"wrap attestation {i} does not bind its chunk's digest")
-            a, publics, bnds = recursion.wrap_attestation_instance(
-                att, expected_queries=32, expected_rows=4096, expected_terminal=64,
-                wrap_blowup=32)
-            stmts.append(wrap_circuit.statement_hash(a, publics, bnds, int(p["shift"]), 11, 12,
-                                                      device=device))
-        t_verify = time.perf_counter() - t
-        pub = [int(x) for x in json.loads(r4.final_proof.public_input)]
-        if pub != [wrap_circuit.final_public_input(stmts, AGGREGATOR)]:
-            raise AssertionError("the public input is not the statement hash of the headers")
-        vk = prover.pinned_vk(AGGREGATOR)
-        proof = json.loads(r4.final_proof.proof)
-        t = time.perf_counter()
-        if not groth16.verify(vk, proof, pub):
-            raise AssertionError("the final proof does not verify under the pinned VK")
-        t_pinned = time.perf_counter() - t
-        forged = dict(proof, pi_c=dict(proof["pi_a"]))
-        if groth16.verify(vk, forged, pub):
-            raise AssertionError("a forged pi_c passes groth16.verify")
-        bad = json.loads(r3.result_string)
-        row = bad["children"][0]["wrap_proof"]["trace_openings"][0][0]["row"]
-        row[0] = str((int(row[0]) + 1) % gl.P)
-        res = prover.gen_final_proof("smoke", json.dumps(bad), "BN128", AGGREGATOR)
-        if res.result_code != ProofResultCode.COMPLETED_ERROR:
-            raise AssertionError("a corrupted wrap attestation did not give COMPLETED_ERROR")
+            stages, last = [], [0.0]
+
+            def on_stage(name: str) -> None:
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stages.append((name, now - last[0], torch.cuda.max_memory_allocated(device)))
+                last[0] = now
+
+            attest = recursion.attest_chunk_wrap
+
+            def attest_from_now(*args, **kwargs):
+                torch.cuda.synchronize()
+                last[0] = time.perf_counter()  # the trace build starts here
+                return attest(*args, **kwargs)
+
+            sizes = []
+            build = wrap_circuit.build_final_circuit
+
+            def build_counted(*args, **kwargs):
+                out = build(*args, **kwargs)
+                sizes.append((len(out[0].constraints), out[0].num_vars))
+                return out
+
+            targets = ((stark, "prove_chunk"), (wrap_circuit, "build_final_circuit"),
+                       (crs, "generate"), (groth16, "_lagrange_at"),
+                       (groth16, "fixed_base_device"), (crs, "save"), (crs, "load"),
+                       (groth16, "_row_values"), (groth16, "_h_from_values_device"),
+                       (msm, "msm_affine"), (groth16, "prove"), (groth16, "verify"))
+            torch.cuda.reset_peak_memory_stats(device)
+            air.STAGE_HOOK, recursion.attest_chunk_wrap = on_stage, attest_from_now
+            wrap_circuit.build_final_circuit = build_counted
+            try:
+                with timed_funcs(targets) as crs_calls:
+                    kernels.reset_launches()
+                    t = time.perf_counter()
+                    prover.ensure_wrap_crs(AGGREGATOR)
+                    torch.cuda.synchronize()
+                    t_crs = time.perf_counter() - t
+                    crs_launches = dict(kernels.LAUNCHES)
+                crs_stages = list(stages)
+                stages.clear()
+                crs_peak = torch.cuda.max_memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                prover._stark_crs.clear()  # step 4 loads the CRS from its files, as a node does
+                wire = []
+                log_wire(node, wire)
+                # a failed step raises at once, with the server's message
+                pipeline = ProverPipeline(MemDb(), node, chain_id=CHAIN_ID, program_name="evm",
+                                          aggregator_addr=AGGREGATOR, max_retries=0)
+                with timed_funcs(targets) as calls, serve_steps(prover) as served:
+                    kernels.reset_launches()
+                    t = time.perf_counter()
+                    result = pipeline.execute(L2_BLOCK)
+                    t_node = time.perf_counter() - t
+                launches = dict(kernels.LAUNCHES)
+                times, steps = served.times, served.launches
+            finally:
+                air.STAGE_HOOK, recursion.attest_chunk_wrap = None, attest
+                wrap_circuit.build_final_circuit = build
+            peak = torch.cuda.max_memory_allocated(device)
+            status_client = RemoteBatchProver(addr)
+            try:
+                status = status_client.get_status()
+            finally:
+                status_client.close()
+            r1, r2, r3, r4 = (served.results[step] for step in STEPS)
+
+            # gates
+            if [w["step"] for w in wire] != list(STEPS):
+                raise AssertionError(f"the node sent {[w['step'] for w in wire]}")
+            if (status.status != pb.GetStatusResponse.Status.STATUS_IDLE
+                    or status.prover_status.last_computed_request_id != wire[-1]["id"]):
+                raise AssertionError(f"GetStatus after the batch: {status}")
+            parent, block = blocks[L2_BLOCK - 1], blocks[L2_BLOCK]
+            if (result.pre_state_root.hex(), result.post_state_root.hex()) != (
+                    parent["stateRoot"][2:], block["stateRoot"][2:]):
+                raise AssertionError("the proof's state roots are not the served headers'")
+            if (result.proof, result.public_input) != (r4.final_proof.proof,
+                                                        r4.final_proof.public_input):
+                raise AssertionError("the node's ProofResult is not the server's final proof")
+            payload = base64.b64decode(r1.batch_data)
+            if r1.chunk_count != 2 or len(r2.chunk_proofs) != 2:
+                raise AssertionError(f"expected 2 chunks, got {r1.chunk_count}")
+            chunks = [json.loads(c.proof)["stark"] for c in r2.chunk_proofs]
+            for i, proof in enumerate(chunks):
+                if proof["n"] != 4096 or not stark.verify_chunk(proof, sp):
+                    raise AssertionError(f"chunk proof {i} does not verify")
+            agg = json.loads(r3.result_string)
+            if [k["type"] for k in agg["children"]] != ["chunk-attested-wrap"] * 2:
+                raise AssertionError("step 3 did not make wrap-profile attestations")
+            t = time.perf_counter()
+            stmts = []
+            for i, att in enumerate(agg["children"]):
+                p = att["wrap_proof"]
+                if (p["n"], p["n_cols"], p["ext_blowup"], p["num_queries"], p["grind_bits"]) != (
+                        1 << 18, ATT_COLS, 32, 11, 12):
+                    raise AssertionError(f"wrap attestation {i} has not the node's profile")
+                digest = recursion.verify_attestation_wrap(
+                    att, expected_queries=32, expected_rows=4096, expected_terminal=64,
+                    expected_wrap_queries=11, expected_wrap_grind=12, wrap_blowup=32,
+                    device=device)
+                if digest != ps.chunk_digest(chunks[i]):
+                    raise AssertionError(f"wrap attestation {i} does not bind its chunk's digest")
+                a, publics, bnds = recursion.wrap_attestation_instance(
+                    att, expected_queries=32, expected_rows=4096, expected_terminal=64,
+                    wrap_blowup=32)
+                stmts.append(wrap_circuit.statement_hash(a, publics, bnds, int(p["shift"]), 11,
+                                                          12, device=device))
+            t_verify = time.perf_counter() - t
+            pub = [int(x) for x in json.loads(result.public_input)]
+            if pub != [wrap_circuit.final_public_input(stmts, AGGREGATOR)]:
+                raise AssertionError("the public input is not the statement hash of the headers")
+            vk = prover.pinned_vk(AGGREGATOR)
+            proof = json.loads(result.proof)
+            t = time.perf_counter()
+            if not groth16.verify(vk, proof, pub):
+                raise AssertionError("the final proof does not verify under the pinned VK")
+            t_pinned = time.perf_counter() - t
+            forged = dict(proof, pi_c=dict(proof["pi_a"]))
+            if groth16.verify(vk, forged, pub):
+                raise AssertionError("a forged pi_c passes groth16.verify")
+            bad = json.loads(r3.result_string)
+            row = bad["children"][0]["wrap_proof"]["trace_openings"][0][0]["row"]
+            row[0] = str((int(row[0]) + 1) % gl.P)
+            res = node.gen_final_proof("smoke", json.dumps(bad), "BN128", AGGREGATOR)
+            if res.result_code != ProofResultCode.COMPLETED_ERROR:
+                raise AssertionError("a corrupted wrap attestation did not give COMPLETED_ERROR")
+        finally:
+            node.close()
+            server.stop(0)
     for step in ("gen_chunk_proof",):
         require_launches(f"stark wrap, {step}", steps[step], ("poseidon2",))
     require_launches("stark wrap, gen_aggregated_proof", steps["gen_aggregated_proof"],
@@ -1418,8 +1666,10 @@ def phase_stark_wrap(device) -> dict:
                 scalars, g2):
             raise AssertionError(f"the device fixed-base differs from the host's ({n} scalars)")
 
-    log(f"[stark-wrap] {STARK_WRAP_BLOCKS} blocks, {r1.chunk_count} chunks of 4096 rows "
-        f"(blowup 4, 32 queries, terminal 64); wrap profile 11 queries, 12 grinding bits, "
+    log(f"[stark-wrap] through the prover server at {addr} (gRPC), ChainExecutor on the "
+        f"stand-in L2 at {l2.url}: block {L2_BLOCK}, {len(block['transactions'])} legacy "
+        f"transactions, a payload of {len(payload)} bytes, {r1.chunk_count} chunks of 4096 "
+        f"rows (blowup 4, 32 queries, terminal 64); wrap profile 11 queries, 12 grinding bits, "
         f"blowup 32, {prover.max_wrap_leaves} leaves")
     log(f"[stark-wrap] ensure_wrap_crs: {t_crs:.3f} s, peak {crs_peak / 2**20:.0f} MiB, "
         f"launches {crs_launches}")
@@ -1433,10 +1683,16 @@ def phase_stark_wrap(device) -> dict:
         f"{sum(1 for n, _, _ in crs_calls.times if n == 'fixed_base_device')}: "
         f"{crs_calls.total('fixed_base_device'):.3f} s")
     log(f"[stark-wrap] circuit: {sizes[0][0]} constraints, {sizes[0][1]} variables")
-    for step, secs in times.items():
-        log(f"[stark-wrap] {step}: {secs:.3f} s, launches F {steps[step]['poseidon_fr']}, "
+    for w in wire[:len(STEPS)]:
+        step = w["step"]
+        log(f"[stark-wrap] {step}: server {times[step]:.3f} s, node {w['node_s']:.3f} s "
+            f"(the gRPC hop {w['node_s'] - times[step]:.3f} s); request {w['request_bytes']} B, "
+            f"response {w['response_bytes']} B; launches F {steps[step]['poseidon_fr']}, "
             f"E {steps[step]['poseidon2']}, B {steps[step]['point_add']}, "
             f"B G2 {steps[step]['point_add_g2']}, A {steps[step]['mont_mul']}")
+    largest = max(max(w["request_bytes"], w["response_bytes"]) for w in wire)
+    log(f"[stark-wrap] largest gRPC message: {largest} B ({largest / 2**20:.3f} MiB; gRPC's "
+        f"default limit 4 MiB)")
     k = 0
     for name, secs, mem in stages:
         k += name == "trace"
@@ -1445,16 +1701,18 @@ def phase_stark_wrap(device) -> dict:
     for name, _, secs in calls.times:
         if name != "prove_chunk":
             log(f"[stark-wrap] gen_final_proof: {name}: {secs:.3f} s")
-    log(f"[stark-wrap] total of the four steps: {sum(times.values()):.3f} s")
+    log(f"[stark-wrap] total of the four steps: server {sum(times.values()):.3f} s, node "
+        f"{t_node:.3f} s (ProverPipeline.execute)")
     log(f"[stark-wrap] max_memory_allocated: {peak / 2**20:.1f} MiB (steps), "
         f"{crs_peak / 2**20:.1f} MiB (CRS)")
     log(f"[stark-wrap] launches: {launches}")
     log(f"[stark-wrap] 2/2 chunk proofs pass verify_chunk; 2/2 wrap attestations pass "
-        f"verify_attestation_wrap under the pinned profile ({t_verify:.3f} s); the public input "
-        f"is the statement hash of the headers; groth16.verify under the pinned VK is True "
-        f"({t_pinned:.3f} s); a forged pi_c is rejected; a corrupted attestation gives "
-        f"COMPLETED_ERROR; the device fixed-base equals the host's on 2^14 G1 and 2^10 G2 "
-        f"scalars")
+        f"verify_attestation_wrap under the pinned profile ({t_verify:.3f} s); the state roots "
+        f"and the public input are those of the served headers; groth16.verify under the "
+        f"pinned VK is True ({t_pinned:.3f} s); a forged pi_c is rejected; a corrupted "
+        f"attestation gives COMPLETED_ERROR over the wire; GetStatus after the batch: "
+        f"STATUS_IDLE, last computed request {status.prover_status.last_computed_request_id}; "
+        f"the device fixed-base equals the host's on 2^14 G1 and 2^10 G2 scalars")
     return launches
 
 

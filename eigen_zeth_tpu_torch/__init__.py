@@ -14,7 +14,13 @@ Layout:
               recursive verifier AIR, the wrap-profile STARK and its
               in-circuit verifier (R1CS builder, wrap circuit), Groth16 and
               its CRS files, KZG
-  protocol/   the batch prover service (`BatchProver`)
+  protocol/   the batch prover service (`BatchProver`, `ChainExecutor`), the
+              gRPC ProverService server and client (`grpc_shim.py`), the
+              resumable proving state machine and its KV store
+  parallel/   chunk proving pipelined with host aggregation
+  settlement/ the L2 JSON-RPC client the chain executor reads through
+  utils/      the environment config, RLP, the prover's telemetry
+  cli.py      `python -m eigen_zeth_tpu_torch prover`, the prover process
 
 The device is always explicit: functions that create tensors take a
 `device`, and `BatchProver(..., device=torch.device("cuda"))` proves on the

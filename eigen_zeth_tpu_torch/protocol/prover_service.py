@@ -35,7 +35,12 @@ As in the reference, every step returns COMPLETED_ERROR, with the error's
 text, for anything that goes wrong in it: malformed input, an invalid
 child proof, an executor's failure, and a kernel's build or launch failure
 too (the caller sees the message; `chip_smoke.py` fails on it).
-`ChainExecutor` is not ported yet (ROADMAP.md, Queue 1, M3).
+
+The node path's executor is `ChainExecutor`: it reads the sequenced blocks
+from the L2 (over `settlement.ethereum.JsonRpcClient` in the prover
+process) and packs their transactions as the rollup worker submits them,
+so the chunk STARKs commit to the chain's real transactions and state
+roots.  `SyntheticExecutor` is the hermetic stand-in of the tests.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 from ..models import crs as crs_mod
 from ..models import groth16, recursion, stark, stark_batch, wrap_circuit
 from ..ops import keccak, poseidon
+from ..utils import rlp
 from .messages import (
     ChunkProof,
     FinalProof,
@@ -104,7 +110,8 @@ class ExecutionResult:
 
 class SyntheticExecutor:
     """Deterministic stand-in for the L2 execution layer: per-block payloads
-    and keccak-chained state roots derived from block numbers."""
+    and keccak-chained state roots derived from block numbers.  Used by
+    prover-only tests; the node path uses ChainExecutor."""
 
     def execute(self, block_numbers: List[int], chain_id: int) -> ExecutionResult:
         payload = b"".join(
@@ -112,6 +119,52 @@ class SyntheticExecutor:
         )
         pre = keccak.keccak256_host(f"ezt-state/{chain_id}/{min(block_numbers) - 1}".encode())
         post = keccak.keccak256_host(f"ezt-state/{chain_id}/{max(block_numbers)}".encode())
+        return ExecutionResult(pre + post + payload, pre, post)
+
+
+def _block_state_root(block: dict) -> bytes:
+    """State root of a block header; a block without one gets a commitment
+    to its number and transactions, so the payload still binds it."""
+    root = block.get("stateRoot")
+    if isinstance(root, str) and root.startswith("0x"):
+        return bytes.fromhex(root[2:]).rjust(32, b"\x00")
+    content = json.dumps(
+        {"number": block.get("number"), "transactions": block.get("transactions")},
+        sort_keys=True,
+    ).encode()
+    return keccak.keccak256_host(content)
+
+
+class ChainExecutor:
+    """The node path's execution backend: reads the sequenced chain itself,
+    as the reference's prover network holds the L2 and executes the block
+    numbers the node hands it (proto/prover/v1/prover.proto:49-54).  The
+    batch payload is
+        pre_state_root || post_state_root || RLP(tx_0) ... RLP(tx_k)
+    with each tx packed as the rollup worker submits it on-chain
+    (`rlp.encode_legacy_tx`), so a change to any sequenced tx changes every
+    chunk digest and the final public input."""
+
+    def __init__(self, chain):
+        self.chain = chain  # anything with get_block_by_number(n, full_txs)
+
+    def execute(self, block_numbers: List[int], chain_id: int) -> ExecutionResult:
+        if not block_numbers:
+            raise ValueError("empty block list")
+        first = min(block_numbers)
+        parent = self.chain.get_block_by_number(first - 1, False)
+        if parent is None:
+            raise ValueError(f"parent block {first - 1} not found")
+        pre = _block_state_root(parent)
+        payload = b""
+        post = pre
+        for n in sorted(block_numbers):
+            blk = self.chain.get_block_by_number(n, True)
+            if blk is None:
+                raise ValueError(f"block {n} not found")
+            for tx in blk.get("transactions") or []:
+                payload += rlp.encode_legacy_tx(tx, chain_id)
+            post = _block_state_root(blk)
         return ExecutionResult(pre + post + payload, pre, post)
 
 
@@ -245,8 +298,6 @@ class BatchProver:
     def gen_batch_chunks(self, batch_id: str, block_numbers: List[int], chain_id: int,
                          program_name: str) -> GenBatchChunksResult:
         try:
-            if not block_numbers:
-                raise ValueError("empty block list")
             ex = self.executor.execute(block_numbers, chain_id)
             elems = bytes_to_field_elements(ex.batch_data)
             return GenBatchChunksResult(

@@ -235,11 +235,19 @@ def test_debug_proof_returns_the_reference_vectors(slices, monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """A fresh process imports the port and proves a 16-row chunk."""
+    """A fresh process imports every module of the port (the prover server,
+    the state machine, the CLI among them) and chip_smoke.py's imports, and
+    proves a 16-row chunk."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
+        "import eigen_zeth_tpu_torch as port\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__, 'eigen_zeth_tpu_torch.')]\n"
+        "assert {'eigen_zeth_tpu_torch.protocol.grpc_shim', 'eigen_zeth_tpu_torch.cli',\n"
+        "        'eigen_zeth_tpu_torch.protocol.state_machine'} <= set(names), names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "from eigen_zeth_tpu_torch.models import stark\n"
-        "from eigen_zeth_tpu_torch.protocol import prover_service\n"
         "p = stark.prove_chunk([1, 2, 3], 5, stark.StarkParams(num_queries=2, terminal_size=16),"
         " n_rows=16, device='cpu')\n"
         "assert stark.verify_chunk(p, stark.StarkParams(num_queries=2, terminal_size=16))\n"
