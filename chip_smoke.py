@@ -34,8 +34,8 @@ the entry points a user calls, and checks every stage:
      and on) and checks their sha256 digests against
      tests/data/torch_slice_golden.json; makes the CRS of the tiny STARK
      wrap and proves it, against tests/data/torch_stark_wrap_golden.json
-  5. the batch proof, `BatchProver(wrap="mimc", recursion=False)`: 7,200
-     synthetic blocks (9 chunks of 4,096-row traces), default StarkParams,
+  5. the batch proof, `BatchProver(wrap="mimc", recursion=False)`: 1,600
+     synthetic blocks (2 chunks of 4,096-row traces), default StarkParams,
      the MiMC Groth16 wrap; checks every chunk proof with verify_chunk and
      the final proof with groth16.verify
   6. the fast G1 MSM at 2^18 distinct points, c = 13, serial 32, window
@@ -59,30 +59,47 @@ the entry points a user calls, and checks every stage:
      kernel E was launched in steps 2 and 3, at most 60 times an
      attestation
  10. the node's default, sound final wrap at the node's configuration, as a
-     deployment reaches it: a stand-in L2 (a stdlib JSON-RPC server on
-     loopback) serves block 1, 168 legacy transactions from L2_SEED whose
-     packing is 2 chunks, and its parent; the prover process's own code
-     (`cli.cmd_prover` on `prover --final-wrap stark --device cuda`) serves
-     ProverService over gRPC in this process, `ChainExecutor` reading that
-     L2, on `BatchProver(recursion=True, wrap="stark")` with the production
-     chunk shape and wrap profile (11 queries, 12 grinding bits, blowup 32,
-     two leaves).  `ensure_wrap_crs` first, on the server's prover, into a
-     scratch directory, timed by stage; then the node side,
-     `ProverPipeline(MemDb(), RemoteBatchProver(addr))`, drives the four
-     steps over the wire: each step's wall on the server (synchronised) and
-     on the node, its launches and the bytes of its request and response;
-     step 3 by stage, step 4 by part.  Checks every chunk proof, every wrap
-     attestation with verify_attestation_wrap under the pinned profile, the
-     state roots and the public input against the served headers,
-     groth16.verify under the pinned VK, a forged pi_c rejected, a corrupted
-     attestation giving COMPLETED_ERROR over the wire, GetStatus afterwards
-     on a second client (STATUS_IDLE, the final step's request id), the
-     device fixed-base against the host's on 2^14 G1 and 2^10 G2 scalars,
-     and kernel F launched in step 3 (at most F_STEP3_MOST times)
+     deployment reaches it: the port's node (`cli.cmd_run` on `run
+     --prover-addr ... --settlement mock --database memory
+     --verify-signatures --dev-fund`, auto-mine off, 0.2 s worker
+     intervals) and the prover process's own code (`cli.cmd_prover` on
+     `prover --final-wrap stark --device cuda --l2-addr <the node>`) in this
+     process, over loopback: ProverService over gRPC, `ChainExecutor`
+     reading the node's eigenrpc, `BatchProver(recursion=True,
+     wrap="stark")` with the production chunk shape and wrap profile (11
+     queries, 12 grinding bits, blowup 32, two leaves).  `ensure_wrap_crs`
+     first, on the server's prover, into a scratch directory, timed by
+     stage; then 168 legacy transactions from L2_SEED, signed (EIP-155) with
+     keys drawn from the seed, go in over eth_sendRawTransaction and the
+     node's Sequencer seals them into block 1 (a packing of 2 chunks); the
+     node's operator drives the four steps over the wire, settles the proof
+     with the mock settlement and serves it with eigenrpc_getBatchProof.
+     Each step's wall on the server (synchronised) and on the node, its
+     launches and the bytes of its request and response; step 3 by stage,
+     step 4 by part; the node's seconds to take the transactions in, to
+     execute and seal the block, and from the seal to the proof served.
+     Checks every transaction mined with status 1, every chunk proof, every
+     wrap attestation with verify_attestation_wrap under the pinned
+     profile, the payload's state roots against the node's
+     eth_getBlockByNumber, the public input, the served proof equal to the
+     server's, the mock settlement's record, groth16.verify under the pinned
+     VK, a forged pi_c rejected, a corrupted attestation giving
+     COMPLETED_ERROR over the wire, GetStatus afterwards on a second client
+     (STATUS_IDLE, the final step's request id), the device fixed-base
+     against the host's on 2^14 G1 and 2^10 G2 scalars, and kernel F
+     launched in step 3 (at most F_STEP3_MOST times)
+ 11. the node's default topology, proving in process: `run --device cuda
+     --final-wrap mimc` (no --prover-addr; recursion on at the production
+     chunk shape), 36 signed transactions from NODE_SEED sealed into one
+     block; checks the proof served by eigenrpc (the node's state roots,
+     groth16.verify), the mock settlement's record, every receipt, and that
+     kernels A, B and E were launched in the node's steps
 
-Before each of the paths 5-10 the launch counts are set to 0, and read just
-after: every kernel of that path must have been launched, and Montgomery
-multiplies must stay few (a power is one launch, not one per squaring).
+The transactions of 10 and 11 are signed on the host after the build.
+Before each of the paths 5-11 the launch counts are set to
+0, and read just after: every kernel of that path must have been launched,
+and Montgomery multiplies must stay few (a power is one launch, not one per
+squaring).
 It prints a JSON line with each kernel's numbers, then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises; without a CUDA
 device it exits non-zero before proving anything.
@@ -104,14 +121,17 @@ import numpy as np
 import torch
 
 from eigen_zeth_tpu_torch.models import air, groth16, kzg, merkle, recursion, stark
-from eigen_zeth_tpu_torch.ops import bn254, keccak, kernels, msm, poseidon
+from eigen_zeth_tpu_torch.ops import bn254, kernels, msm, poseidon
 from eigen_zeth_tpu_torch.ops import goldilocks as gl
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
+from eigen_zeth_tpu_torch.settlement.ethereum import JsonRpcClient
+from eigen_zeth_tpu_torch.utils import ethtx, secp256k1
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_slice_golden.json"
-SLICE_BLOCKS = 7200
+SLICE_BLOCKS = 1600  # 2 chunks (7,200 and 9 chunks cut for the time limit)
+SLICE_CHUNKS = 2
 MSM_POINTS = 1326  # variables of the MiMC wrap circuit
 KERNEL_BATCH = 32 * MSM_POINTS  # 32 windows of c = 8 over the MSM's points
 MSM_LOG2 = 18  # the fast MSM's size: 2^18 points
@@ -206,24 +226,25 @@ F_STEP3_MOST = 100  # kernel F launches step 3 may take (2 attestations)
 STARK_GOLDEN = ROOT / "tests" / "data" / "torch_stark_wrap_golden.json"
 
 
-# The stand-in L2 of the stark-wrap phase: block L2_BLOCK holds L2_TXS legacy
-# transactions, whose packing (with the two state roots) is 2 chunks of 4,094
-# elements, as the JAX sequencer's blocks carry them; its parent is block
-# L2_BLOCK - 1.  Made from L2_SEED.
+# The node's block of the stark-wrap phase: L2_TXS legacy transactions, signed
+# (EIP-155) with keys drawn from L2_SEED, whose packing (with the two state
+# roots) is 2 chunks of 4,094 elements; the port's node seals them into block
+# L2_BLOCK.  The in-process phase seals NODE_TXS from NODE_SEED.
 L2_SEED = 20261017
 L2_BLOCK = 1
 L2_TXS = 168
+NODE_SEED = 20261018
+NODE_TXS = 36
 SECP256K1_N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 # calldata selectors: ERC-20 transfer and approve, Uniswap V2 swapExactTokensForTokens
 ERC20_TRANSFER, ERC20_APPROVE, SWAP_EXACT = "a9059cbb", "095ea7b3", "38ed1739"
 
 
-def l2_blocks(seed: int, chain_id: int = CHAIN_ID) -> dict:
-    """{number: block} of the stand-in L2, as eth_getBlockByNumber(n, true)
-    returns them: the parent block (no transactions) and block L2_BLOCK with
-    L2_TXS signed legacy transactions (EIP-155 v) from 12 senders, nonces in
-    order: half ETH transfers, three tenths ERC-20 transfers, a tenth ERC-20
-    approvals and a tenth Uniswap V2 swaps, each with the gas its kind takes."""
+def l2_transactions(seed: int, n: int, chain_id: int = CHAIN_ID) -> list:
+    """(transaction, key) of n legacy transactions from 12 senders whose keys
+    are drawn from seed, each sender's nonces in order from 0: half ETH
+    transfers, three tenths ERC-20 transfers, a tenth ERC-20 approvals and a
+    tenth Uniswap V2 swaps, each with the gas its kind takes."""
     rng = np.random.default_rng(seed)
 
     def addr() -> str:
@@ -232,12 +253,13 @@ def l2_blocks(seed: int, chain_id: int = CHAIN_ID) -> dict:
     def word(v: int) -> str:
         return f"{v:064x}"
 
-    senders = [addr() for _ in range(12)]
+    keys = [int.from_bytes(rng.bytes(32), "big") % (SECP256K1_N - 1) + 1 for _ in range(12)]
+    senders = [secp256k1.priv_to_address(k).lower() for k in keys]
     tokens, router = [addr() for _ in range(4)], addr()
-    nonces = {a: int(rng.integers(0, 5000)) for a in senders}
+    nonces = [0] * len(keys)
     txs = []
-    for i in range(L2_TXS):
-        sender = senders[int(rng.integers(0, len(senders)))]
+    for _ in range(n):
+        who = int(rng.integers(0, len(keys)))
         kind = rng.choice(["transfer", "erc20", "approve", "swap"], p=[0.5, 0.3, 0.1, 0.1])
         amount = int(rng.integers(1, 1 << 62)) * int(rng.integers(1, 1000))
         to, value, data, gas = addr(), amount, "", 21000
@@ -251,83 +273,123 @@ def l2_blocks(seed: int, chain_id: int = CHAIN_ID) -> dict:
             a, b = rng.choice(4, 2, replace=False)
             to, value, gas = router, 0, 180000
             data = (SWAP_EXACT + word(amount) + word(amount // 2) + word(0xA0)
-                    + word(int(sender, 16)) + word(1_800_000_000) + word(2)
+                    + word(int(senders[who], 16)) + word(1_800_000_000) + word(2)
                     + word(int(tokens[a], 16)) + word(int(tokens[b], 16)))
-        tx = {
-            "from": sender, "nonce": hex(nonces[sender]),
-            "gasPrice": hex(int(rng.integers(1, 60)) * 10**9 + int(rng.integers(0, 10**9))),
-            "gas": hex(gas), "to": to, "value": hex(value), "input": "0x" + data,
-            "chainId": hex(chain_id),
-            "v": hex(2 * chain_id + 35 + int(rng.integers(0, 2))),
-            "r": hex(int.from_bytes(rng.bytes(32), "big") % SECP256K1_N),
-            "s": hex(int.from_bytes(rng.bytes(32), "big") % (SECP256K1_N // 2)),
-            "blockNumber": hex(L2_BLOCK), "transactionIndex": hex(i),
-        }
-        nonces[sender] += 1
-        tx["hash"] = "0x" + keccak.keccak256_host(json.dumps(tx, sort_keys=True).encode()).hex()
-        txs.append(tx)
-
-    def block(n: int, transactions: list) -> dict:
-        return {"number": hex(n), "hash": "0x" + rng.bytes(32).hex(),
-                "parentHash": "0x" + rng.bytes(32).hex(), "stateRoot": "0x" + rng.bytes(32).hex(),
-                "timestamp": hex(1_760_000_000 + 2 * n), "gasLimit": hex(30_000_000),
-                "gasUsed": hex(sum(int(t["gas"], 16) for t in transactions)),
-                "transactions": transactions}
-
-    return {L2_BLOCK - 1: block(L2_BLOCK - 1, []), L2_BLOCK: block(L2_BLOCK, txs)}
+        tx = {"nonce": hex(nonces[who]),
+              "gasPrice": hex(int(rng.integers(1, 60)) * 10**9 + int(rng.integers(0, 10**9))),
+              "gas": hex(gas), "to": to, "value": hex(value), "input": "0x" + data}
+        nonces[who] += 1
+        txs.append((tx, keys[who]))
+    return txs
 
 
-class StandInL2:
-    """An L2 node's JSON-RPC as far as the prover reads it: a stdlib HTTP
-    server on loopback answering eth_getBlockByNumber for the blocks it
-    holds (null for any other, transaction hashes unless full ones are
-    asked for).  A context manager: `url` while it serves."""
+def sign_raw(job) -> bytes:
+    """The raw signed bytes (eth_sendRawTransaction's) of one (tx, key)."""
+    tx, key = job
+    return ethtx.encode_signed_raw(ethtx.sign_legacy_tx(tx, CHAIN_ID, key), CHAIN_ID)
 
-    def __init__(self, blocks: dict):
-        self.blocks = blocks
 
-    def _answer(self, method: str, params: list):
-        if method != "eth_getBlockByNumber":
-            raise KeyError(method)
-        blk = self.blocks.get(int(params[0], 16))
-        if blk is None or params[1]:
-            return blk
-        return dict(blk, transactions=[t["hash"] for t in blk["transactions"]])
+def run_node(tmp: str, *extra) -> dict:
+    """`cli.cmd_run` on the parsed `run` command of a node that seals blocks
+    when asked (auto-mine off), checks signatures and funds senders on first
+    touch, with the mock settlement and 0.2 s worker intervals."""
+    from eigen_zeth_tpu_torch import cli
 
-    def __enter__(self) -> "StandInL2":
-        import threading
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    conf = Path(tmp) / "worker.toml"
+    conf.write_text("[settlement_worker_config]\nproof_interval = 0.2\nverify_interval = 0.2\n"
+                    "rollup_interval = 0.2\nwatcher_interval = 0.2\n")
+    return cli.cmd_run(cli.build_parser().parse_args([
+        "run", "--database", "memory", "--settlement", "mock", "--rpc-port", "0",
+        "--auto-mine-interval", "0", "--verify-signatures", "--dev-fund", "--worker-conf",
+        str(conf), "--aggregator-addr", AGGREGATOR, *extra]), wait=False)
 
-        outer = self
 
-        class Handler(BaseHTTPRequestHandler):
-            def do_POST(self):
-                req = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
-                try:
-                    out = {"result": outer._answer(req["method"], req["params"])}
-                except KeyError as e:
-                    out = {"error": {"code": -32601, "message": f"method not found: {e}"}}
-                body = json.dumps({"jsonrpc": "2.0", "id": req["id"], **out}).encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+def node_and_prover_server(tmp: str, prover_args: list) -> tuple:
+    """The port's node (`run_node`, `--prover-addr` at the server) and the
+    prover server (`cli.cmd_prover` with `--l2-addr` at the node's
+    eigenrpc), each on a port the system picks.  Each names the other, so
+    the server's port is probed free first; if the server then cannot bind
+    it (another process took it meanwhile), both start again on a new one."""
+    import socket
 
-            def log_message(self, *args):
-                pass
+    from eigen_zeth_tpu_torch import cli
 
-        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
-        self._thread.start()
-        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
-        return self
+    for _ in range(3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        node = run_node(tmp, "--prover-addr", f"127.0.0.1:{port}")
+        try:
+            return node, cli.cmd_prover(cli.build_parser().parse_args([
+                "prover", "--port", str(port), "--l2-addr",
+                f"http://127.0.0.1:{node['server'].port}", *prover_args]), wait=False)
+        except RuntimeError as exc:  # grpc: "Failed to bind to address ..."
+            node["shutdown"]()
+            log(f"[stark-wrap] the prover server could not bind port {port}: {exc}")
+    raise AssertionError("the prover server found no free port in 3 tries")
 
-    def __exit__(self, *exc):
-        self._server.shutdown()
-        self._server.server_close()
-        self._thread.join()
-        return False
+
+def seal_and_prove(node: dict, raws: list, results: dict, deadline_s: float,
+                   poll_s: float) -> dict:
+    """Send the raw transactions over eth_sendRawTransaction, seal them into
+    one block through the node's Sequencer, and poll eigenrpc_getBatchProof
+    every poll_s seconds until it serves the block's proof, then wait until
+    the settlement has verified it.  The poll is what a user of eigenrpc
+    does; a few requests a second slowed the prover server's host work
+    beside it, one every 5 s did not.  A step whose result is not
+    COMPLETED_OK (results: step -> its last result) fails at once.  Returns
+    the hashes, the served proof, and the times (the served time is late by
+    at most poll_s)."""
+    rpc = JsonRpcClient(f"http://127.0.0.1:{node['server'].port}", timeout=60.0).call
+    t = time.perf_counter()
+    hashes = [rpc("eth_sendRawTransaction", ["0x" + raw.hex()]) for raw in raws]
+    t_send = time.perf_counter() - t
+    t = time.perf_counter()
+    block = node["sequencer"].build_block()
+    t_seal = time.perf_counter() - t
+    number = int(block["number"], 16)
+    t = time.perf_counter()
+    while not ((proof := rpc("eigenrpc_getBatchProof", [number])) and proof.get("proof")):
+        for res in list(results.values()):
+            _check(res)
+        if time.perf_counter() - t > deadline_s:
+            raise AssertionError(f"no proof of block {number} within {deadline_s} s")
+        time.sleep(poll_s)
+    t_served = time.perf_counter() - t
+    settlement = node["operator"].settlement
+    while not settlement.verified or rpc("eigenrpc_getBlockByNumber", [hex(number)])[
+            "status"] != "Finalized":
+        if time.perf_counter() - t > deadline_s + 60:
+            raise AssertionError(f"block {number} was not settled")
+        time.sleep(0.05)
+    t_settled = time.perf_counter() - t
+    return {"rpc": rpc, "hashes": hashes, "block": block, "proof": proof,
+            "verified": settlement.verified[-1], "send_s": t_send, "seal_s": t_seal,
+            "served_s": t_served, "settled_s": t_settled}
+
+
+def check_node_block(sealed: dict, n_txs: int) -> tuple:
+    """Every transaction mined in the sealed block with status 1; the served
+    proof's state roots are the node's own (eth_getBlockByNumber); the mock
+    settlement recorded the block.  Returns the parent and the block."""
+    rpc, number = sealed["rpc"], int(sealed["block"]["number"], 16)
+    parent = rpc("eth_getBlockByNumber", [hex(number - 1), False])
+    block = rpc("eth_getBlockByNumber", [hex(number), False])
+    if len(block["transactions"]) != n_txs:
+        raise AssertionError(f"block {number} holds {len(block['transactions'])} of {n_txs} "
+                             "transactions")
+    statuses = {rpc("eth_getTransactionReceipt", [h])["status"] for h in sealed["hashes"]}
+    if statuses != {"0x1"}:
+        raise AssertionError(f"receipt statuses {statuses}, expected all 0x1")
+    proof = sealed["proof"]
+    if (proof["preStateRoot"], proof["postStateRoot"]) != (parent["stateRoot"],
+                                                           block["stateRoot"]):
+        raise AssertionError("the served proof's state roots are not the node's")
+    if proof["blockNumber"] != number:
+        raise AssertionError(f"eigenrpc served the proof of block {proof['blockNumber']}")
+    if sealed["verified"].new_state_root.hex() != block["stateRoot"][2:]:
+        raise AssertionError("the mock settlement did not record the block's state root")
+    return parent, block
 
 
 def log(msg: str) -> None:
@@ -1251,8 +1313,8 @@ def phase_slice(device) -> dict:
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
 
-    if r1.chunk_count != 9 or len(r2.chunk_proofs) != 9:
-        raise AssertionError(f"expected 9 chunks, got {r1.chunk_count}")
+    if r1.chunk_count != SLICE_CHUNKS or len(r2.chunk_proofs) != SLICE_CHUNKS:
+        raise AssertionError(f"expected {SLICE_CHUNKS} chunks, got {r1.chunk_count}")
     for c in r2.chunk_proofs:
         proof = json.loads(c.proof)["stark"]
         if proof["n"] != 4096 or not stark.verify_chunk(proof, prover.stark_params):
@@ -1281,7 +1343,8 @@ def phase_slice(device) -> dict:
     log(f"[slice] total of the four steps: {sum(times.values()):.3f} s")
     log(f"[slice] max_memory_allocated: {peak / 2**20:.1f} MiB")
     log(f"[slice] launches: {launches}")
-    log("[slice] 9/9 chunk proofs pass verify_chunk; the final proof passes groth16.verify")
+    log(f"[slice] {SLICE_CHUNKS}/{SLICE_CHUNKS} chunk proofs pass verify_chunk; the final "
+        "proof passes groth16.verify")
     device_profile("slice step 2", lambda: prover.gen_chunk_proof(
         "smoke", r1.task_id, r1.chunk_count, CHAIN_ID, "evm", r1.batch_data))
     return launches
@@ -1385,9 +1448,6 @@ def phase_recursion(device) -> dict:
         f"{ATT_COLS} columns, LDE 2^21) pass verify_attestation under the pinned shape "
         f"({t_verify:.3f} s on the host); the aggregated digest is their hash; the final "
         "proof passes groth16.verify")
-    # where one attestation's time goes on the card (launch counts were read above)
-    device_profile("recursion attestation", lambda: recursion.attest_chunk(
-        chunks[0], num_queries_agg=prover.agg_queries, device=device))
     return launches
 
 
@@ -1479,34 +1539,33 @@ def log_wire(node, wire: list) -> None:
     node.client.request = logged
 
 
-def phase_stark_wrap(device) -> dict:
+def phase_stark_wrap(device, signed: list) -> dict:
     """The node's default, sound final wrap at the node's configuration,
-    reached as a deployment reaches it.  A stand-in L2 serves block L2_BLOCK
-    and its parent over JSON-RPC on loopback; the prover process's own code
-    (`cli.cmd_prover` on the parsed `prover --final-wrap stark --device
-    cuda` command) serves ProverService over gRPC in this process, with
-    `ChainExecutor` reading that L2: `BatchProver(recursion=True,
-    wrap="stark")`, the production chunk shape and the default wrap profile
-    (11 queries, 12 grinding bits, blowup 32, two leaves).  The CRS is made
-    first on the server's prover, as a deployment does once
-    (`ensure_wrap_crs`, into a fresh directory); then the node side, the
-    state machine `ProverPipeline` over `RemoteBatchProver`, drives the four
-    steps over the wire."""
+    reached as a deployment reaches it: the port's node and the port's
+    prover server in this process, over loopback.  The node
+    (`cli.cmd_run` on `run --prover-addr ... --settlement mock --database
+    memory --verify-signatures --dev-fund`) seals the signed transactions it
+    was sent; the prover process's own code (`cli.cmd_prover` on `prover
+    --final-wrap stark --device cuda --l2-addr <the node>`) serves
+    ProverService over gRPC, with `ChainExecutor` reading the node:
+    `BatchProver(recursion=True, wrap="stark")`, the production chunk shape
+    and the default wrap profile (11 queries, 12 grinding bits, blowup 32,
+    two leaves).  The CRS is made first on the server's prover, as a
+    deployment does once (`ensure_wrap_crs`, into a fresh directory); then
+    the transactions go in over eth_sendRawTransaction, the node's Sequencer
+    seals them, and the node's operator drives the four steps over the wire
+    and settles the proof."""
     from eigen_zeth_tpu_torch import cli
     from eigen_zeth_tpu_torch.models import crs, wrap_circuit
     from eigen_zeth_tpu_torch.protocol.grpc_gen.prover.v1 import prover_pb2 as pb
     from eigen_zeth_tpu_torch.protocol.grpc_shim import RemoteBatchProver
-    from eigen_zeth_tpu_torch.protocol.kv import MemDb
-    from eigen_zeth_tpu_torch.protocol.state_machine import ProverPipeline
 
-    blocks = l2_blocks(L2_SEED)
-    with scratch_dir() as crs_dir, StandInL2(blocks) as l2:
-        args = cli.build_parser().parse_args([
-            "prover", "--port", "0", "--l2-addr", l2.url, "--final-wrap", "stark",
-            "--crs-dir", crs_dir, "--device", "cuda"])
-        server = cli.cmd_prover(args, wait=False)
+    with scratch_dir() as crs_dir:
+        node, server = node_and_prover_server(crs_dir, [
+            "--final-wrap", "stark", "--crs-dir", crs_dir, "--device", "cuda"])
         addr = f"127.0.0.1:{server.port}"
-        node = RemoteBatchProver(addr)
+        node_url = f"http://127.0.0.1:{node['server'].port}"
+        client = RemoteBatchProver(addr)
         try:
             prover = server.prover
             sp = prover.stark_params
@@ -1561,26 +1620,18 @@ def phase_stark_wrap(device) -> dict:
                 torch.cuda.reset_peak_memory_stats(device)
                 prover._stark_crs.clear()  # step 4 loads the CRS from its files, as a node does
                 wire = []
-                log_wire(node, wire)
-                # a failed step raises at once, with the server's message
-                pipeline = ProverPipeline(MemDb(), node, chain_id=CHAIN_ID, program_name="evm",
-                                          aggregator_addr=AGGREGATOR, max_retries=0)
+                log_wire(node["operator"].prover, wire)
                 with timed_funcs(targets) as calls, serve_steps(prover) as served:
                     kernels.reset_launches()
-                    t = time.perf_counter()
-                    result = pipeline.execute(L2_BLOCK)
-                    t_node = time.perf_counter() - t
+                    # a failed step raises at once, with the server's message
+                    sealed = seal_and_prove(node, signed, served.results, 900, poll_s=5.0)
                 launches = dict(kernels.LAUNCHES)
                 times, steps = served.times, served.launches
             finally:
                 air.STAGE_HOOK, recursion.attest_chunk_wrap = None, attest
                 wrap_circuit.build_final_circuit = build
             peak = torch.cuda.max_memory_allocated(device)
-            status_client = RemoteBatchProver(addr)
-            try:
-                status = status_client.get_status()
-            finally:
-                status_client.close()
+            status = client.get_status()
             r1, r2, r3, r4 = (served.results[step] for step in STEPS)
 
             # gates
@@ -1589,14 +1640,16 @@ def phase_stark_wrap(device) -> dict:
             if (status.status != pb.GetStatusResponse.Status.STATUS_IDLE
                     or status.prover_status.last_computed_request_id != wire[-1]["id"]):
                 raise AssertionError(f"GetStatus after the batch: {status}")
-            parent, block = blocks[L2_BLOCK - 1], blocks[L2_BLOCK]
-            if (result.pre_state_root.hex(), result.post_state_root.hex()) != (
-                    parent["stateRoot"][2:], block["stateRoot"][2:]):
-                raise AssertionError("the proof's state roots are not the served headers'")
-            if (result.proof, result.public_input) != (r4.final_proof.proof,
-                                                        r4.final_proof.public_input):
-                raise AssertionError("the node's ProofResult is not the server's final proof")
+            parent, block = check_node_block(sealed, L2_TXS)
+            if int(block["number"], 16) != L2_BLOCK:
+                raise AssertionError(f"the node sealed block {block['number']}")
+            result = sealed["proof"]
+            if (result["proof"], result["publicInput"]) != (r4.final_proof.proof,
+                                                            r4.final_proof.public_input):
+                raise AssertionError("eigenrpc does not serve the server's final proof")
             payload = base64.b64decode(r1.batch_data)
+            if payload[:64].hex() != parent["stateRoot"][2:] + block["stateRoot"][2:]:
+                raise AssertionError("the proved payload does not open with the node's roots")
             if r1.chunk_count != 2 or len(r2.chunk_proofs) != 2:
                 raise AssertionError(f"expected 2 chunks, got {r1.chunk_count}")
             chunks = [json.loads(c.proof)["stark"] for c in r2.chunk_proofs]
@@ -1625,11 +1678,11 @@ def phase_stark_wrap(device) -> dict:
                 stmts.append(wrap_circuit.statement_hash(a, publics, bnds, int(p["shift"]), 11,
                                                           12, device=device))
             t_verify = time.perf_counter() - t
-            pub = [int(x) for x in json.loads(result.public_input)]
+            pub = [int(x) for x in json.loads(result["publicInput"])]
             if pub != [wrap_circuit.final_public_input(stmts, AGGREGATOR)]:
-                raise AssertionError("the public input is not the statement hash of the headers")
+                raise AssertionError("the public input is not the statement hash of the chunks")
             vk = prover.pinned_vk(AGGREGATOR)
-            proof = json.loads(result.proof)
+            proof = json.loads(result["proof"])
             t = time.perf_counter()
             if not groth16.verify(vk, proof, pub):
                 raise AssertionError("the final proof does not verify under the pinned VK")
@@ -1640,11 +1693,14 @@ def phase_stark_wrap(device) -> dict:
             bad = json.loads(r3.result_string)
             row = bad["children"][0]["wrap_proof"]["trace_openings"][0][0]["row"]
             row[0] = str((int(row[0]) + 1) % gl.P)
-            res = node.gen_final_proof("smoke", json.dumps(bad), "BN128", AGGREGATOR)
+            res = client.gen_final_proof("smoke", json.dumps(bad), "BN128", AGGREGATOR)
             if res.result_code != ProofResultCode.COMPLETED_ERROR:
                 raise AssertionError("a corrupted wrap attestation did not give COMPLETED_ERROR")
         finally:
-            node.close()
+            node["shutdown"]()
+            if node["operator"]:
+                node["operator"].prover.close()
+            client.close()
             server.stop(0)
     for step in ("gen_chunk_proof",):
         require_launches(f"stark wrap, {step}", steps[step], ("poseidon2",))
@@ -1666,11 +1722,17 @@ def phase_stark_wrap(device) -> dict:
                 scalars, g2):
             raise AssertionError(f"the device fixed-base differs from the host's ({n} scalars)")
 
-    log(f"[stark-wrap] through the prover server at {addr} (gRPC), ChainExecutor on the "
-        f"stand-in L2 at {l2.url}: block {L2_BLOCK}, {len(block['transactions'])} legacy "
-        f"transactions, a payload of {len(payload)} bytes, {r1.chunk_count} chunks of 4096 "
-        f"rows (blowup 4, 32 queries, terminal 64); wrap profile 11 queries, 12 grinding bits, "
-        f"blowup 32, {prover.max_wrap_leaves} leaves")
+    log(f"[stark-wrap] the port's node at {node_url} (run --prover-addr {addr}), the prover "
+        f"server at {addr} (gRPC), ChainExecutor on the node: block {L2_BLOCK}, "
+        f"{len(block['transactions'])} signed legacy transactions, {int(block['gasUsed'], 16)} "
+        f"gas, a payload of {len(payload)} bytes, {r1.chunk_count} chunks of 4096 rows (blowup "
+        f"4, 32 queries, terminal 64); wrap profile 11 queries, 12 grinding bits, blowup 32, "
+        f"{prover.max_wrap_leaves} leaves")
+    log(f"[stark-wrap] node: eth_sendRawTransaction x {L2_TXS}: {sealed['send_s']:.3f} s; the "
+        f"sequencer executes and seals the block: {sealed['seal_s']:.3f} s; block sealed to "
+        f"proof served by eigenrpc_getBatchProof: {sealed['served_s']:.3f} s (polled every "
+        f"5 s); to settled "
+        f"(mock verify_batches, Finalized): {sealed['settled_s']:.3f} s")
     log(f"[stark-wrap] ensure_wrap_crs: {t_crs:.3f} s, peak {crs_peak / 2**20:.0f} MiB, "
         f"launches {crs_launches}")
     for name, secs, mem in crs_stages:
@@ -1702,17 +1764,78 @@ def phase_stark_wrap(device) -> dict:
         if name != "prove_chunk":
             log(f"[stark-wrap] gen_final_proof: {name}: {secs:.3f} s")
     log(f"[stark-wrap] total of the four steps: server {sum(times.values()):.3f} s, node "
-        f"{t_node:.3f} s (ProverPipeline.execute)")
+        f"{sum(w['node_s'] for w in wire):.3f} s (the operator's RemoteBatchProver calls)")
     log(f"[stark-wrap] max_memory_allocated: {peak / 2**20:.1f} MiB (steps), "
         f"{crs_peak / 2**20:.1f} MiB (CRS)")
     log(f"[stark-wrap] launches: {launches}")
-    log(f"[stark-wrap] 2/2 chunk proofs pass verify_chunk; 2/2 wrap attestations pass "
-        f"verify_attestation_wrap under the pinned profile ({t_verify:.3f} s); the state roots "
-        f"and the public input are those of the served headers; groth16.verify under the "
+    log(f"[stark-wrap] {L2_TXS}/{L2_TXS} transactions mined with status 1; eigenrpc serves "
+        f"the server's final proof, and the mock settlement recorded it; 2/2 chunk proofs pass "
+        f"verify_chunk; 2/2 wrap attestations pass verify_attestation_wrap under the pinned "
+        f"profile ({t_verify:.3f} s); the payload opens with the node's state roots "
+        f"(eth_getBlockByNumber) and the public input is the statement hash of the chunks; "
+        f"groth16.verify under the "
         f"pinned VK is True ({t_pinned:.3f} s); a forged pi_c is rejected; a corrupted "
         f"attestation gives COMPLETED_ERROR over the wire; GetStatus after the batch: "
         f"STATUS_IDLE, last computed request {status.prover_status.last_computed_request_id}; "
         f"the device fixed-base equals the host's on 2^14 G1 and 2^10 G2 scalars")
+    return launches
+
+
+def phase_node_in_process(device, signed: list) -> dict:
+    """The node's default topology: `run` proving in process on the card
+    (`cli.cmd_run` on `run --device cuda --final-wrap mimc`, no
+    --prover-addr: `BatchProver`'s defaults otherwise, recursion on at the
+    production chunk shape).  The signed transactions go in over
+    eth_sendRawTransaction, the node's Sequencer seals them into one block,
+    and the operator's workers prove it in this process, settle it and
+    serve it over eigenrpc."""
+    with scratch_dir() as tmp:
+        node = run_node(tmp, "--device", "cuda", "--final-wrap", "mimc")
+        try:
+            prover = node["operator"].prover
+            sp = prover.stark_params
+            shape = (type(prover).__name__, prover.device.type, prover.wrap, prover.recursion,
+                     prover.chunk_trace_rows, sp.blowup, sp.num_queries, sp.terminal_size,
+                     prover.agg_queries)
+            if shape != ("BatchProver", "cuda", "mimc", True, 4096, 4, 32, 64, 30):
+                raise AssertionError(f"not the node's in-process prover: {shape}")
+            with serve_steps(prover) as steps:
+                kernels.reset_launches()
+                sealed = seal_and_prove(node, signed, steps.results, 300, poll_s=1.0)
+            launches = dict(kernels.LAUNCHES)
+            parent, block = check_node_block(sealed, NODE_TXS)
+            r1 = steps.results["gen_batch_chunks"]
+            pub = [int(x) for x in json.loads(sealed["proof"]["publicInput"])]
+            t = time.perf_counter()
+            if not groth16.verify(prover.verifying_key, json.loads(sealed["proof"]["proof"]),
+                                  pub):
+                raise AssertionError("the in-process node's proof does not verify")
+            t_verify = time.perf_counter() - t
+        finally:
+            node["shutdown"]()
+    for step in STEPS:
+        if step != "gen_batch_chunks":
+            require_launches(f"in-process node, {step}", steps.launches[step],
+                             {"gen_chunk_proof": ("poseidon2",),
+                              "gen_aggregated_proof": ("poseidon2",),
+                              "gen_final_proof": ("mont_mul", "point_add")}[step])
+    require_launches("in-process node", launches, ("mont_mul", "point_add", "poseidon2"))
+    log(f"[node] run --device cuda --final-wrap mimc (in-process BatchProver, recursion on, "
+        f"4096-row chunks): block {block['number']}, {len(block['transactions'])} signed "
+        f"legacy transactions, {int(block['gasUsed'], 16)} gas, {r1.chunk_count} chunk(s)")
+    log(f"[node] eth_sendRawTransaction x {NODE_TXS}: {sealed['send_s']:.3f} s; execute and "
+        f"seal: {sealed['seal_s']:.3f} s; block sealed to proof served by "
+        f"eigenrpc_getBatchProof: {sealed['served_s']:.3f} s (polled every 1 s); to settled: "
+        f"{sealed['settled_s']:.3f} s")
+    for step in STEPS:
+        log(f"[node] {step}: {steps.times[step]:.3f} s; launches E "
+            f"{steps.launches[step]['poseidon2']}, B {steps.launches[step]['point_add']}, "
+            f"A {steps.launches[step]['mont_mul']}")
+    log(f"[node] launches: {launches}")
+    log(f"[node] {NODE_TXS}/{NODE_TXS} transactions mined with status 1; the proof served by "
+        f"eigenrpc binds the node's state roots {parent['stateRoot'][:10]}.. -> "
+        f"{block['stateRoot'][:10]}.., the mock settlement recorded it, and it passes "
+        f"groth16.verify under the prover's key ({t_verify:.3f} s)")
     return launches
 
 
@@ -1893,18 +2016,35 @@ def phase_madd(device, points) -> dict:
     return launches
 
 
+def phase(fn, *args):
+    """fn(*args), its wall on the host clock logged."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"[smoke] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False — this run needs a GPU")
     phase_environment()
     device = torch.device("cuda")
-    phase_build(device)
-    timing = phase_kernels(device)
-    phase_golden(device)
-    paths = [phase_slice(device)]
+    phase(phase_build, device)
+    t = time.perf_counter()
+    signed = {name: [sign_raw(job) for job in l2_transactions(seed, n)]
+              for name, seed, n in (("stark-wrap", L2_SEED, L2_TXS), ("node", NODE_SEED, NODE_TXS))}
+    log(f"[smoke] {L2_TXS + NODE_TXS} transactions signed in {time.perf_counter() - t:.1f} s")
+    timing = phase(phase_kernels, device)
+    phase(phase_golden, device)
+    paths = [phase(phase_slice, device)]
     points = test_points(device)
-    paths += [phase_msm(device, points), phase_kzg(device), phase_madd(device, points)]
+    paths += [phase(phase_msm, device, points), phase(phase_kzg, device),
+              phase(phase_madd, device, points)]
     del points
-    paths += [phase_recursion(device), phase_stark_wrap(device)]
+    paths += [phase(phase_recursion, device),
+              phase(phase_stark_wrap, device, signed["stark-wrap"]),
+              phase(phase_node_in_process, device, signed["node"])]
     names = [*KERNEL_WORK, "poseidon2", "poseidon_fr"]
     launches = {name: sum(path[name] for path in paths) for name in names}
     require_launches("main", launches, names)

@@ -16,11 +16,21 @@ Layout:
               its CRS files, KZG
   protocol/   the batch prover service (`BatchProver`, `ChainExecutor`), the
               gRPC ProverService server and client (`grpc_shim.py`), the
-              resumable proving state machine and its KV store
+              resumable proving state machine and its KV store, the
+              eigenrpc JSON-RPC server (`rpc.py`)
   parallel/   chunk proving pipelined with host aggregation
-  settlement/ the L2 JSON-RPC client the chain executor reads through
-  utils/      the environment config, RLP, the prover's telemetry
-  cli.py      `python -m eigen_zeth_tpu_torch prover`, the prover process
+  sequencer/  the L2: mempool, tx filter, block builder and the EVM
+  settlement/ the L1 verifier's proof encoding, the mock and Ethereum
+              settlements, the proof / verify / rollup workers
+  utils/      the environment config, RLP, secp256k1 and transactions, the
+              Merkle-Patricia trie, headers, receipts, telemetry
+  operator.py the node's workers over a prover
+  cli.py      `python -m eigen_zeth_tpu_torch run` (the node) and `prover`
+              (the prover process), `init`
+
+The node's layers (sequencer, settlement, eigenrpc, operator) are host
+Python copies of the JAX package's and do no device work; the node proves
+through the in-process `BatchProver` or a remote prover.
 
 The device is always explicit: functions that create tensors take a
 `device`, and `BatchProver(..., device=torch.device("cuda"))` proves on the

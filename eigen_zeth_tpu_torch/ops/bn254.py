@@ -37,6 +37,11 @@ G2_GEN_Y = (
     4082367875863433681332203403145435568316851327593401208105741076214120093531,
 )
 
+B_G1 = 3
+# b2 = 3 / (9 + u) in Fq2; (9 + u)^-1 = (9 - u) / 82
+_NINE_U_INV = pow(9 * 9 + 1, Q - 2, Q)
+B_G2 = ((3 * 9 * _NINE_U_INV) % Q, (-3 * _NINE_U_INV) % Q)
+
 
 def fq() -> MontCtx:
     return mont_ctx(Q)
@@ -478,3 +483,21 @@ def h_ec_mul_jac_f(k: int, p, F=HOST_FQ):
     zi = F.inv(Z1)
     zi2 = F.mul(zi, zi)
     return (F.mul(X1, zi2), F.mul(Y1, F.mul(zi2, zi)))
+
+
+def h_on_curve_g1(p) -> bool:
+    """y^2 = x^3 + 3 on python ints (None is the point at infinity)."""
+    if p is None:
+        return True
+    x, y = p
+    return (y * y - x * x * x - B_G1) % Q == 0
+
+
+def h_on_curve_g2(p) -> bool:
+    """y^2 = x^3 + b2 over Fq2 on python ints (None is the point at infinity)."""
+    if p is None:
+        return True
+    x, y = p
+    y2 = h_fq2_mul(y, y)
+    x3 = h_fq2_mul(h_fq2_mul(x, x), x)
+    return ((y2[0] - x3[0] - B_G2[0]) % Q, (y2[1] - x3[1] - B_G2[1]) % Q) == (0, 0)

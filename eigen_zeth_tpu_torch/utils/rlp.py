@@ -1,5 +1,5 @@
-"""RLP encoding of legacy transactions — copy of the encoding half of
-eigen_zeth_tpu/utils/rlp.py.
+"""RLP encoding and decoding — a copy of eigen_zeth_tpu/utils/rlp.py, for
+legacy-transaction batch packing and eth_sendRawTransaction ingestion.
 
 encode_legacy_tx is the exact packing the reference's rollup worker submits
 on-chain (src/settlement/worker.rs:425-449, 477-554), and the chain
@@ -36,6 +36,68 @@ def _len_prefix(length: int, offset: int) -> bytes:
         return bytes([offset + length])
     lb = encode_int(length)
     return bytes([offset + 55 + len(lb)]) + lb
+
+
+def _decode_at(data: bytes, i: int):
+    """Decode one item starting at offset i; returns (item, next_offset).
+    Items are bytes or (recursively) lists of items."""
+    if i >= len(data):
+        raise ValueError("rlp: truncated input")
+    b0 = data[i]
+    if b0 < 0x80:  # single byte
+        return data[i : i + 1], i + 1
+    if b0 < 0xB8:  # short string
+        n = b0 - 0x80
+        end = i + 1 + n
+        if end > len(data):
+            raise ValueError("rlp: truncated string")
+        s = data[i + 1 : end]
+        if n == 1 and s[0] < 0x80:
+            raise ValueError("rlp: non-canonical single byte")
+        return s, end
+    if b0 < 0xC0:  # long string
+        ln = b0 - 0xB7
+        n = int.from_bytes(data[i + 1 : i + 1 + ln], "big")
+        if n < 56 or (ln and data[i + 1] == 0):
+            raise ValueError("rlp: non-canonical length")
+        end = i + 1 + ln + n
+        if end > len(data):
+            raise ValueError("rlp: truncated string")
+        return data[i + 1 + ln : end], end
+    if b0 < 0xF8:  # short list
+        n = b0 - 0xC0
+        end = i + 1 + n
+        j = i + 1
+    else:  # long list
+        ln = b0 - 0xF7
+        n = int.from_bytes(data[i + 1 : i + 1 + ln], "big")
+        if n < 56 or (ln and data[i + 1] == 0):
+            raise ValueError("rlp: non-canonical length")
+        j = i + 1 + ln
+        end = j + n
+    if end > len(data):
+        raise ValueError("rlp: truncated list")
+    items = []
+    while j < end:
+        item, j = _decode_at(data, j)
+        items.append(item)
+    if j != end:
+        raise ValueError("rlp: list payload overrun")
+    return items, end
+
+
+def decode(data: bytes):
+    """Decode exactly one RLP item; trailing bytes are an error."""
+    item, end = _decode_at(bytes(data), 0)
+    if end != len(data):
+        raise ValueError("rlp: trailing bytes")
+    return item
+
+
+def decode_int(b: bytes) -> int:
+    if b and b[0] == 0:
+        raise ValueError("rlp: leading zero in integer")
+    return int.from_bytes(b, "big")
 
 
 def tx_int(x, default: int = 0) -> int:

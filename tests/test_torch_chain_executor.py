@@ -4,12 +4,14 @@
 pre_state_root || post_state_root || RLP(tx)... with the rollup worker's
 legacy-transaction packing (`utils/rlp.encode_legacy_tx`), which the chunk
 STARKs commit to.  Each case feeds the JAX package's executor and the
-port's the same chain (a dict of blocks, or chip_smoke.py's stand-in L2
-over loopback JSON-RPC) and holds the port's ExecutionResult, and its
-step-1 result, to the JAX one.  Tolerance: none, bytes must be identical.
+port's the same chain (a dict of blocks from the port's sequencer, or the
+port's node serving chip_smoke.py's block over loopback JSON-RPC) and holds
+the port's ExecutionResult, and its step-1 result, to the JAX one.
+Tolerance: none, bytes must be identical.
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -23,9 +25,11 @@ from eigen_zeth_tpu.settlement.ethereum import JsonRpcClient as JJsonRpcClient
 from eigen_zeth_tpu.utils import rlp as jrlp
 from eigen_zeth_tpu_torch.models import stark
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
+from eigen_zeth_tpu_torch.protocol import kv, rpc
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
+from eigen_zeth_tpu_torch.sequencer.chain import Sequencer
 from eigen_zeth_tpu_torch.settlement.ethereum import JsonRpcClient
-from eigen_zeth_tpu_torch.utils import rlp
+from eigen_zeth_tpu_torch.utils import rlp, secp256k1
 
 CPU = torch.device("cpu")
 SP = dict(blowup=4, num_queries=2, terminal_size=16)
@@ -74,12 +78,36 @@ class DictChain:
         return self.blocks.get(n)
 
 
+@functools.lru_cache(maxsize=None)
+def node_chain(seed: int, n: int) -> Sequencer:
+    """The port's sequencer holding block L2_BLOCK: n transactions of
+    chip_smoke.py's mix from seed, signed as chip_smoke.py signs them."""
+    jobs = chip_smoke.l2_transactions(seed, n)
+    raws = [chip_smoke.sign_raw(job) for job in jobs]
+    senders = {key: secp256k1.priv_to_address(key).lower() for _, key in jobs}
+    seq = Sequencer(chain_id=chip_smoke.CHAIN_ID, auto_fund=True)
+    for raw, (_, key) in zip(raws, jobs):
+        nonce, price, gas, to, value, data, v, r, s = (
+            rlp.decode_int(x) if k not in (3, 5) else x for k, x in enumerate(rlp.decode(raw)))
+        seq.send_raw_transaction({
+            "from": senders[key], "nonce": hex(nonce), "gasPrice": hex(price), "gas": hex(gas),
+            "to": "0x" + to.hex(), "value": hex(value), "input": "0x" + data.hex(),
+            "v": hex(v), "r": hex(r), "s": hex(s)})
+    seq.build_block(timestamp=1_760_000_002)
+    assert seq.block_number() == chip_smoke.L2_BLOCK
+    return seq
+
+
 def _blocks():
-    blocks = chip_smoke.l2_blocks(7)
-    parent, block = blocks[chip_smoke.L2_BLOCK - 1], blocks[chip_smoke.L2_BLOCK]
+    """chip_smoke.py's phase 10 block (168 transactions, 2 chunks of the
+    production size) and its parent, as the port's sequencer sealed them."""
+    seq = node_chain(chip_smoke.L2_SEED, chip_smoke.L2_TXS)
+    parent, block = (seq.get_block_by_number(n, True)
+                     for n in (chip_smoke.L2_BLOCK - 1, chip_smoke.L2_BLOCK))
     # a second block without a stateRoot (the content commitment) and with
-    # a contract creation
-    creation = dict(block["transactions"][0], to=None, input="0x" + "60" * 300)
+    # a contract creation at a nonce of two bytes
+    creation = dict(block["transactions"][0], to=None, nonce=hex(5000),
+                    input="0x" + "60" * 300)
     nxt = {"number": hex(chip_smoke.L2_BLOCK + 1), "transactions": [creation]}
     return {chip_smoke.L2_BLOCK - 1: parent, chip_smoke.L2_BLOCK: block,
             chip_smoke.L2_BLOCK + 1: nxt}
@@ -94,6 +122,12 @@ def _provers(chain, jchain):
     return jprover, prover
 
 
+def _production_chunks(ex) -> int:
+    """Chunks of the batch's payload at the production chunk size (7 bytes
+    an element)."""
+    return -(-(-(-len(ex.batch_data) // 7)) // ps.CHUNK_FIELD_ELEMS)
+
+
 def _same(got, want):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
@@ -101,8 +135,10 @@ def _same(got, want):
 @pytest.mark.parametrize("numbers", [[1], [2], [2, 1]])
 def test_chain_executor_equals_jax_on_a_dict_chain(numbers):
     chain = DictChain(_blocks())
-    _same(ps.ChainExecutor(chain).execute(numbers, 12345),
-          jps.ChainExecutor(chain).execute(numbers, 12345))
+    ex = ps.ChainExecutor(chain).execute(numbers, 12345)
+    _same(ex, jps.ChainExecutor(chain).execute(numbers, 12345))
+    if numbers == [1]:  # the batch crosses a chunk boundary of the production size
+        assert _production_chunks(ex) == 2
     jprover, prover = _provers(chain, chain)
     got, want = (p.gen_batch_chunks("b", numbers, 12345, "evm") for p in (prover, jprover))
     assert got.result_code == ProofResultCode.COMPLETED_OK
@@ -110,23 +146,27 @@ def test_chain_executor_equals_jax_on_a_dict_chain(numbers):
 
 
 def test_chain_executor_over_json_rpc_equals_jax():
-    """Both executors read chip_smoke.py's stand-in L2 over loopback
-    JSON-RPC, each through its own package's client; the batch is the
-    phase's: 2 chunks of the production chunk size."""
-    blocks = chip_smoke.l2_blocks(chip_smoke.L2_SEED)
-    with chip_smoke.StandInL2(blocks) as l2:
-        ex = ps.ChainExecutor(JsonRpcClient(l2.url)).execute([chip_smoke.L2_BLOCK],
-                                                              chip_smoke.CHAIN_ID)
-        jex = jps.ChainExecutor(JJsonRpcClient(l2.url)).execute([chip_smoke.L2_BLOCK],
-                                                                chip_smoke.CHAIN_ID)
-        jprover, prover = _provers(JsonRpcClient(l2.url), JJsonRpcClient(l2.url))
+    """Both executors read the port's node (its eigenrpc server) over
+    loopback JSON-RPC, each through its own package's client; the batch is
+    chip_smoke.py's phase 10 block: 2 chunks of the production chunk size."""
+    seq = node_chain(chip_smoke.L2_SEED, chip_smoke.L2_TXS)
+    server = rpc.EigenRpcServer(kv.MemDb(), seq).start()
+    url = f"http://127.0.0.1:{server.port}"
+    try:
+        ex = ps.ChainExecutor(JsonRpcClient(url)).execute([chip_smoke.L2_BLOCK],
+                                                          chip_smoke.CHAIN_ID)
+        jex = jps.ChainExecutor(JJsonRpcClient(url)).execute([chip_smoke.L2_BLOCK],
+                                                             chip_smoke.CHAIN_ID)
+        jprover, prover = _provers(JsonRpcClient(url), JJsonRpcClient(url))
         got, want = (p.gen_batch_chunks("b", [1], 12345, "evm") for p in (prover, jprover))
+    finally:
+        server.stop()
     _same(ex, jex)
     _same(got, want)
-    assert ex.pre_state_root == bytes.fromhex(blocks[0]["stateRoot"][2:])
-    assert ex.post_state_root == bytes.fromhex(blocks[1]["stateRoot"][2:])
-    elems = -(-len(ex.batch_data) // 7)
-    assert -(-elems // ps.CHUNK_FIELD_ELEMS) == 2
+    assert ex.pre_state_root == bytes.fromhex(seq.get_block_by_number(0)["stateRoot"][2:])
+    assert ex.post_state_root == bytes.fromhex(seq.get_block_by_number(1)["stateRoot"][2:])
+    assert len(seq.get_block_by_number(1)["transactions"]) == chip_smoke.L2_TXS
+    assert _production_chunks(ex) == 2
 
 
 @pytest.mark.parametrize("numbers", [[1], [2, 3], []], ids=["no-parent", "no-block", "empty"])
