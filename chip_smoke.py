@@ -23,7 +23,9 @@ the entry points a user calls, and checks every stage:
      through its three entry points: the grind search's 2^14 states with
      edge lanes, the leaf sponge over the wrap attestation's 2^23 rows of
      216 columns, column-major, and its whole 2^23-leaf tree in one launch),
-     with edge cases checked against host arithmetic.  Three times per kernel: at the path's shape
+     with edge cases checked against host arithmetic; kernel G, the batched
+     keccak256, at 0, 135, 136, 137 and 272 bytes against its plain version
+     and the host, timed at 2^20 messages of 136 bytes.  Three times per kernel: at the path's shape
      (CUDA events around runs of back-to-back launches, median), the
      host's cost of a launch (host clock around 200 launches, nothing
      synchronised inside), and the device time at a batch where the card's
@@ -48,7 +50,7 @@ the entry points a user calls, and checks every stage:
   8. the unsafe mixed add through `bn254.point_madd_unsafe` (kernel D) on
      2^17 pairs of distinct points, against the complete add and the host
   9. the batch proof with recursive aggregation, as a node runs it:
-     `BatchProver(recursion=True, wrap="mimc")` at the production chunk shape
+     `BatchProver(recursion=True, wrap="mimc", mesh=...)` at the production chunk shape
      (4,096-row chunks, blowup 4, 32 queries, terminal 64, 30 queries of the
      attestation STARK), 1,600 synthetic blocks (2 chunks): step 3 attests
      each chunk with the verifier AIR (a 2^18-row trace of 216 columns,
@@ -57,12 +59,15 @@ the entry points a user calls, and checks every stage:
      with recursion.verify_attestation under the pinned shape, the
      aggregated digest, the final proof with groth16.verify, and that
      kernel E was launched in steps 2 and 3, at most 60 times an
-     attestation
- 10. the node's default, sound final wrap at the node's configuration, as a
-     deployment reaches it: the port's node (`cli.cmd_run` on `run
-     --prover-addr ... --settlement mock --database memory
+     attestation; step 2 runs its 2 chunks over a 2-way chunk axis (logical
+     shards over the cards) and must equal a serial step 2 byte for byte
+ 10. the node's default, sound final wrap at the node's configuration, as
+     scripts/launch-devnet-torch.sh deploys it, in one process: the port's
+     bridge service (`settlement/bridge_mock.py`, verify-batches checked
+     under the pinned VK), the port's node (`cli.cmd_run` on `run
+     --prover-addr ... --settlement custom --database native
      --verify-signatures --dev-fund`, auto-mine off, 0.2 s worker
-     intervals) and the prover process's own code (`cli.cmd_prover` on
+     intervals, BRIDGE_SERVICE_ADDR at the bridge) and the prover process's own code (`cli.cmd_prover` on
      `prover --final-wrap stark --device cuda --l2-addr <the node>`) in this
      process, over loopback: ProverService over gRPC, `ChainExecutor`
      reading the node's eigenrpc, `BatchProver(recursion=True,
@@ -70,10 +75,12 @@ the entry points a user calls, and checks every stage:
      queries, 12 grinding bits, blowup 32, two leaves).  `ensure_wrap_crs`
      first, on the server's prover, into a scratch directory, timed by
      stage; then 168 legacy transactions from L2_SEED, signed (EIP-155) with
-     keys drawn from the seed, go in over eth_sendRawTransaction and the
-     node's Sequencer seals them into block 1 (a packing of 2 chunks); the
-     node's operator drives the four steps over the wire, settles the proof
-     with the mock settlement and serves it with eigenrpc_getBatchProof.
+     keys drawn from the seed, go in over eth_sendRawTransaction and one
+     tick of the CL driver (`sequencer/cl_driver.py`:
+     engine_forkchoiceUpdatedV3, getPayloadV3, newPayloadV3) seals them into
+     block 1 (a packing of 2 chunks); the node's operator drives the four
+     steps over the wire, settles the proof through the bridge and serves it
+     with eigenrpc_getBatchProof.
      Each step's wall on the server (synchronised) and on the node, its
      launches and the bytes of its request and response; step 3 by stage,
      step 4 by part; the node's seconds to take the transactions in, to
@@ -82,21 +89,35 @@ the entry points a user calls, and checks every stage:
      wrap attestation with verify_attestation_wrap under the pinned
      profile, the payload's state roots against the node's
      eth_getBlockByNumber, the public input, the served proof equal to the
-     server's, the mock settlement's record, groth16.verify under the pinned
+     server's, the bridge's record (accepted by its own groth16.verify under
+     the pinned VK; a forged pi_c sent to it refused), the CL driver's
+     payload the node's block, groth16.verify under the pinned
      VK, a forged pi_c rejected, a corrupted attestation giving
      COMPLETED_ERROR over the wire, GetStatus afterwards on a second client
      (STATUS_IDLE, the final step's request id), the device fixed-base
-     against the host's on 2^14 G1 and 2^10 G2 scalars, and kernel F
-     launched in step 3 (at most F_STEP3_MOST times)
+     against the host's on 2^14 G1 and 2^10 G2 scalars, kernel F
+     launched in step 3 (at most F_STEP3_MOST times), and, after shutdown,
+     the node's native database reopened by NativeDb and its log read by
+     FileDb, both with the batch's proof, Finalized status and watermark
  11. the node's default topology, proving in process: `run --device cuda
      --final-wrap mimc` (no --prover-addr; recursion on at the production
      chunk shape), 36 signed transactions from NODE_SEED sealed into one
      block; checks the proof served by eigenrpc (the node's state roots,
      groth16.verify), the mock settlement's record, every receipt, and that
      kernels A, B and E were launched in the node's steps
+ 12. multi-device, after 8: a (chunk, domain) mesh over every card with at
+     least 4 logical shards: `dryrun_multichip` at the path's sizes
+     (`ntt_sharded` / `intt_sharded` at 2^20 Goldilocks elements bit for
+     bit the one-device `ntt`, `msm_dist_g1` on the 2^18 points of 6 equal
+     to the one-device `msm` and the host), `entry()`'s chunk-commit root
+     equal to the same step on the CPU, under one `profile_trace` whose
+     trace holds kernel E; within 15 s
+ 13. the batched keccak256 through `keccak.keccak256` on 2^20 messages of
+     136 bytes (kernel G: no path of the node calls it, as in the JAX
+     package), a sample held to the host
 
 The transactions of 10 and 11 are signed on the host after the build.
-Before each of the paths 5-11 the launch counts are set to
+Before each of the paths 5-13 the launch counts are set to
 0, and read just after: every kernel of that path must have been launched,
 and Montgomery multiplies must stay few (a power is one launch, not one per
 squaring).
@@ -224,6 +245,16 @@ F_GRIND_BATCH = 1 << 14  # states of one batch of the card's grind search
 F_BIG_PERM = 1 << 18
 F_STEP3_MOST = 100  # kernel F launches step 3 may take (2 attestations)
 STARK_GOLDEN = ROOT / "tests" / "data" / "torch_stark_wrap_golden.json"
+# Kernel G, keccak256: a block is 24 rounds; as 32-bit operations with
+# three-input logic (LOP3) and a 64-bit rotation as two funnel shifts, a round
+# is 80 for theta (the column parities 20, the five rotations by one 10, the
+# 25 lanes' two-way XOR with both parities 50), 48 for rho and pi (24
+# rotations), 50 for chi (one LOP3 a half lane) and 2 for iota: 180.  Bytes:
+# each message read once and its digest written once.
+KECCAK_OPS_PER_BLOCK = 24 * (20 + 10 + 50 + 48 + 50 + 2)
+KECCAK_MESSAGES, KECCAK_LEN = 1 << 20, 136  # the timed batch: two blocks a message
+KECCAK_EDGE = (0, 135, 136, 137, 272)
+KECCAK_CHECK = 4096  # messages of each edge length held to the plain version
 
 
 # The node's block of the stark-wrap phase: L2_TXS legacy transactions, signed
@@ -289,22 +320,24 @@ def sign_raw(job) -> bytes:
     return ethtx.encode_signed_raw(ethtx.sign_legacy_tx(tx, CHAIN_ID, key), CHAIN_ID)
 
 
-def run_node(tmp: str, *extra) -> dict:
+def run_node(tmp: str, *extra, database: str = "memory", settlement: str = "mock") -> dict:
     """`cli.cmd_run` on the parsed `run` command of a node that seals blocks
     when asked (auto-mine off), checks signatures and funds senders on first
-    touch, with the mock settlement and 0.2 s worker intervals."""
+    touch, with 0.2 s worker intervals, on the given database (native: a log
+    under tmp) and settlement (custom: the bridge at BRIDGE_SERVICE_ADDR)."""
     from eigen_zeth_tpu_torch import cli
 
     conf = Path(tmp) / "worker.toml"
     conf.write_text("[settlement_worker_config]\nproof_interval = 0.2\nverify_interval = 0.2\n"
                     "rollup_interval = 0.2\nwatcher_interval = 0.2\n")
     return cli.cmd_run(cli.build_parser().parse_args([
-        "run", "--database", "memory", "--settlement", "mock", "--rpc-port", "0",
-        "--auto-mine-interval", "0", "--verify-signatures", "--dev-fund", "--worker-conf",
-        str(conf), "--aggregator-addr", AGGREGATOR, *extra]), wait=False)
+        "run", "--database", database, "--db-path", str(Path(tmp) / "zeth.db"), "--settlement",
+        settlement, "--rpc-port", "0", "--auto-mine-interval", "0", "--verify-signatures",
+        "--dev-fund", "--worker-conf", str(conf), "--aggregator-addr", AGGREGATOR, *extra]),
+        wait=False)
 
 
-def node_and_prover_server(tmp: str, prover_args: list) -> tuple:
+def node_and_prover_server(tmp: str, prover_args: list, **node_kw) -> tuple:
     """The port's node (`run_node`, `--prover-addr` at the server) and the
     prover server (`cli.cmd_prover` with `--l2-addr` at the node's
     eigenrpc), each on a port the system picks.  Each names the other, so
@@ -318,7 +351,7 @@ def node_and_prover_server(tmp: str, prover_args: list) -> tuple:
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
-        node = run_node(tmp, "--prover-addr", f"127.0.0.1:{port}")
+        node = run_node(tmp, "--prover-addr", f"127.0.0.1:{port}", **node_kw)
         try:
             return node, cli.cmd_prover(cli.build_parser().parse_args([
                 "prover", "--port", str(port), "--l2-addr",
@@ -330,22 +363,28 @@ def node_and_prover_server(tmp: str, prover_args: list) -> tuple:
 
 
 def seal_and_prove(node: dict, raws: list, results: dict, deadline_s: float,
-                   poll_s: float) -> dict:
+                   poll_s: float, seal=None, settled=None) -> dict:
     """Send the raw transactions over eth_sendRawTransaction, seal them into
-    one block through the node's Sequencer, and poll eigenrpc_getBatchProof
-    every poll_s seconds until it serves the block's proof, then wait until
-    the settlement has verified it.  The poll is what a user of eigenrpc
-    does; a few requests a second slowed the prover server's host work
-    beside it, one every 5 s did not.  A step whose result is not
-    COMPLETED_OK (results: step -> its last result) fails at once.  Returns
-    the hashes, the served proof, and the times (the served time is late by
-    at most poll_s)."""
+    one block (`seal()`, by default through the node's Sequencer), and poll
+    eigenrpc_getBatchProof every poll_s seconds until it serves the block's
+    proof, then wait until the settlement has verified it (`settled()`: the
+    state root it recorded, hex, or None; by default the mock settlement's).
+    The poll is what a user of eigenrpc does; a few requests a second slowed
+    the prover server's host work beside it, one every 5 s did not.  A step
+    whose result is not COMPLETED_OK (results: step -> its last result)
+    fails at once.  Returns the hashes, the served proof, the settled root
+    and the times (the served time is late by at most poll_s)."""
     rpc = JsonRpcClient(f"http://127.0.0.1:{node['server'].port}", timeout=60.0).call
+    if seal is None:
+        seal = node["sequencer"].build_block
+    if settled is None:
+        mock = node["operator"].settlement
+        settled = lambda: mock.verified[-1].new_state_root.hex() if mock.verified else None  # noqa: E731
     t = time.perf_counter()
     hashes = [rpc("eth_sendRawTransaction", ["0x" + raw.hex()]) for raw in raws]
     t_send = time.perf_counter() - t
     t = time.perf_counter()
-    block = node["sequencer"].build_block()
+    block = seal()
     t_seal = time.perf_counter() - t
     number = int(block["number"], 16)
     t = time.perf_counter()
@@ -356,22 +395,22 @@ def seal_and_prove(node: dict, raws: list, results: dict, deadline_s: float,
             raise AssertionError(f"no proof of block {number} within {deadline_s} s")
         time.sleep(poll_s)
     t_served = time.perf_counter() - t
-    settlement = node["operator"].settlement
-    while not settlement.verified or rpc("eigenrpc_getBlockByNumber", [hex(number)])[
+    while (root := settled()) is None or rpc("eigenrpc_getBlockByNumber", [hex(number)])[
             "status"] != "Finalized":
         if time.perf_counter() - t > deadline_s + 60:
             raise AssertionError(f"block {number} was not settled")
         time.sleep(0.05)
     t_settled = time.perf_counter() - t
     return {"rpc": rpc, "hashes": hashes, "block": block, "proof": proof,
-            "verified": settlement.verified[-1], "send_s": t_send, "seal_s": t_seal,
+            "settled_root": root, "send_s": t_send, "seal_s": t_seal,
             "served_s": t_served, "settled_s": t_settled}
 
 
 def check_node_block(sealed: dict, n_txs: int) -> tuple:
     """Every transaction mined in the sealed block with status 1; the served
-    proof's state roots are the node's own (eth_getBlockByNumber); the mock
-    settlement recorded the block.  Returns the parent and the block."""
+    proof's state roots are the node's own (eth_getBlockByNumber); the
+    settlement recorded the block's state root.  Returns the parent and the
+    block."""
     rpc, number = sealed["rpc"], int(sealed["block"]["number"], 16)
     parent = rpc("eth_getBlockByNumber", [hex(number - 1), False])
     block = rpc("eth_getBlockByNumber", [hex(number), False])
@@ -387,8 +426,8 @@ def check_node_block(sealed: dict, n_txs: int) -> tuple:
         raise AssertionError("the served proof's state roots are not the node's")
     if proof["blockNumber"] != number:
         raise AssertionError(f"eigenrpc served the proof of block {proof['blockNumber']}")
-    if sealed["verified"].new_state_root.hex() != block["stateRoot"][2:]:
-        raise AssertionError("the mock settlement did not record the block's state root")
+    if sealed["settled_root"] != block["stateRoot"][2:]:
+        raise AssertionError("the settlement did not record the block's state root")
     return parent, block
 
 
@@ -723,7 +762,92 @@ def phase_kernels(device) -> dict:
             f"{r['device_probed_bound_by']} at the probed multiply-add rate)")
     results["poseidon2"] = poseidon2
     results["poseidon_fr"] = _phase_poseidon_fr_kernel(device, rng)
+    results["keccak256"] = _phase_keccak_kernel(device, rng)
     return results
+
+
+def keccak_bound(n: int, length: int, ops_per_s: float = INT32_MADS_PER_S) -> dict:
+    """The least time the card could take for keccak256 of n messages of
+    `length` bytes: the messages read and the digests written once against
+    KECCAK_OPS_PER_BLOCK 32-bit integer operations a block."""
+    blocks = length // 136 + 1
+    by_bytes = n * (length + 32) / HBM_BYTES_PER_S * 1e3
+    by_ops = n * blocks * KECCAK_OPS_PER_BLOCK / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _phase_keccak_kernel(device, rng) -> dict:
+    """Kernel G against its plain version and `keccak256_host` at the rate's
+    edge lengths, and against its plain version at the path's 2^20 messages
+    of 136 bytes (two blocks each), bit for bit; there its times: `ms` and
+    `device_ms` of the launch alone on the padded lanes, `plain_ms` of the
+    plain version on the same lanes on the card, the host's cost of a launch
+    on 1,024 contiguous messages."""
+    from eigen_zeth_tpu_torch.ops import keccak
+
+    err = 0
+    for length in KECCAK_EDGE:
+        msgs = torch.from_numpy(rng.integers(0, 256, (KECCAK_CHECK, length), dtype=np.uint8))
+        lanes = keccak.pad_lanes(msgs.to(device))
+        err = max(err, _compare(f"keccak256 ({length} bytes)", (kernels.keccak256_lanes(lanes),),
+                                (keccak.absorb_plain(lanes),)))
+        out = keccak.keccak256(msgs.to(device)).cpu().numpy()
+        for i in (0, 1, KECCAK_CHECK - 1):
+            if bytes(out[i]) != keccak.keccak256_host(bytes(msgs[i].numpy())):
+                raise AssertionError(f"keccak256 differs from the host at {length} bytes")
+    msgs = torch.randint(0, 256, (KECCAK_MESSAGES, KECCAK_LEN), dtype=torch.uint8, device=device)
+    lanes = keccak.pad_lanes(msgs)
+    bound = keccak_bound(KECCAK_MESSAGES, KECCAK_LEN)
+    plain = []
+    plain_ms = cuda_time_ms(lambda: plain.append(keccak.absorb_plain(lanes)), 1, 1)
+    err = max(err, _compare(f"keccak256 ({KECCAK_MESSAGES} x {KECCAK_LEN} bytes)",
+                            (kernels.keccak256_lanes(lanes),), (plain[-1],)))
+    del plain
+    ms = cuda_time_ms(lambda: kernels.keccak256_lanes(lanes), 20)
+    small = lanes[:, :1024].contiguous()
+    result = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+        "host_us_per_launch": host_us_per_launch(lambda: kernels.keccak256_lanes(small)),
+        "device_batch": KECCAK_MESSAGES, "device_ms": ms,
+        "device_bound_ms": bound["bound_ms"], "device_bound_by": bound["bound_by"],
+        # the probe times the wide multiply-add, an instruction G never issues
+        "device_probed_bound_ms": None, "device_probed_bound_by": None,
+        "entry_ms": cuda_time_ms(lambda: keccak.keccak256(msgs), 5),
+    }
+    log(f"[kernels] keccak256: bit-exact vs plain and the host at {KECCAK_EDGE} bytes "
+        f"({KECCAK_CHECK} messages each); {KECCAK_MESSAGES} messages of {KECCAK_LEN} bytes, "
+        f"bit-exact vs plain: kernel {ms:.4f} ms, plain {result['plain_ms']:.4f} ms, bound {bound['bound_ms']:.4f} "
+        f"ms by {bound['bound_by']}; host "
+        f"{result['host_us_per_launch']:.1f} us per launch (1,024 messages); keccak256() with its padding "
+        f"{result['entry_ms']:.4f} ms")
+    return result
+
+
+def phase_keccak(device) -> dict:
+    """The batched keccak256 through its entry point, `keccak.keccak256`
+    (no path of the node calls it, as in the JAX package): 2^20 messages of
+    136 bytes from a seed, counts reset just before; a sample held to the host."""
+    from eigen_zeth_tpu_torch.ops import keccak
+
+    rng = np.random.default_rng(136)
+    msgs = rng.integers(0, 256, (KECCAK_MESSAGES, KECCAK_LEN), dtype=np.uint8)
+    on_card = torch.from_numpy(msgs).to(device)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out = keccak.keccak256(on_card)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    require_launches("keccak256", launches, ("keccak256",))
+    out = out.cpu().numpy()
+    for i in rng.integers(0, KECCAK_MESSAGES, 16):
+        if bytes(out[i]) != keccak.keccak256_host(bytes(msgs[i])):
+            raise AssertionError(f"keccak256 of message {i} differs from the host")
+    log(f"[keccak] keccak.keccak256 on {KECCAK_MESSAGES} messages of {KECCAK_LEN} bytes: "
+        f"{secs * 1e3:.3f} ms (padding included), 16 digests equal to the host's; launches "
+        f"{launches['keccak256']}")
+    return launches
 
 
 def poseidon_bound(rows: int, k_in: int, k_out: int, perms_per_row: int,
@@ -1352,8 +1476,13 @@ def phase_slice(device) -> dict:
 
 def phase_recursion(device) -> dict:
     """The batch proof as a node runs it: recursive aggregation on, the MiMC
-    wrap, at the production chunk shape, through the four entry points."""
-    prover = ps.BatchProver(recursion=True, wrap="mimc", device=device)
+    wrap, at the production chunk shape, through the four entry points; its
+    2 chunks over a 2-way chunk axis (`BatchProver(mesh=)`, logical shards
+    over the cards), step 2 held byte for byte to a serial step 2."""
+    from eigen_zeth_tpu_torch.parallel import mesh
+
+    chunk_mesh = mesh.make_mesh(n_domain=1, n_chunk=2, devices=mesh.logical_shards(2))
+    prover = ps.BatchProver(recursion=True, wrap="mimc", device=device, mesh=chunk_mesh)
     sp = prover.stark_params
     shape = (prover.chunk_trace_rows, sp.blowup, sp.num_queries, sp.terminal_size,
              prover.agg_queries)
@@ -1390,6 +1519,19 @@ def phase_recursion(device) -> dict:
 
     if r1.chunk_count != 2 or len(r2.chunk_proofs) != 2:
         raise AssertionError(f"expected 2 chunks, got {r1.chunk_count}")
+    # step 2 again, serial and then over the mesh once more: the second
+    # mesh call shows what the first call's warm-up cost
+    again = {}
+    for name, m in (("serial", None), ("mesh, after the serial", chunk_mesh)):
+        prover.mesh = m
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = prover.gen_chunk_proof("smoke", r1.task_id, r1.chunk_count, CHAIN_ID, "evm",
+                                   r1.batch_data)
+        torch.cuda.synchronize()
+        again[name] = time.perf_counter() - t
+        if [c.proof for c in r.chunk_proofs] != [c.proof for c in r2.chunk_proofs]:
+            raise AssertionError(f"step 2 ({name}) differs from step 2 over the chunk mesh")
     chunks = [json.loads(c.proof)["stark"] for c in r2.chunk_proofs]
     for i, proof in enumerate(chunks):
         if proof["n"] != 4096 or len(proof["fri"]["roots"]) != 8:
@@ -1429,7 +1571,10 @@ def phase_recursion(device) -> dict:
 
     log(f"[recursion] {RECURSION_BLOCKS} blocks, {r1.chunk_count} chunks of 4096 rows "
         f"(blowup {sp.blowup}, {sp.num_queries} queries, terminal {sp.terminal_size}), "
-        f"{prover.agg_queries} queries of the attestation STARK, mimc wrap")
+        f"{prover.agg_queries} queries of the attestation STARK, mimc wrap; step 2 over the "
+        f"chunk mesh {[str(d) for d in chunk_mesh.chunk_devices()]}, byte-identical to a "
+        f"serial step 2 ({again['serial']:.3f} s) and to the mesh's again after it "
+        f"({again['mesh, after the serial']:.3f} s)")
     for step, s in times.items():
         log(f"[recursion] {step}: {s:.3f} s, poseidon2 launches {steps[step]['poseidon2']}")
     log(f"[recursion] kernel E launches per attestation: {per_attestation:g}")
@@ -1555,14 +1700,24 @@ def phase_stark_wrap(device, signed: list) -> dict:
     the transactions go in over eth_sendRawTransaction, the node's Sequencer
     seals them, and the node's operator drives the four steps over the wire
     and settles the proof."""
-    from eigen_zeth_tpu_torch import cli
     from eigen_zeth_tpu_torch.models import crs, wrap_circuit
+    from eigen_zeth_tpu_torch.native.zethdb import NativeDb
+    from eigen_zeth_tpu_torch.protocol import kv
     from eigen_zeth_tpu_torch.protocol.grpc_gen.prover.v1 import prover_pb2 as pb
     from eigen_zeth_tpu_torch.protocol.grpc_shim import RemoteBatchProver
+    from eigen_zeth_tpu_torch.sequencer import cl_driver
+    from eigen_zeth_tpu_torch.settlement.bridge_mock import BridgeService
+    from eigen_zeth_tpu_torch.settlement.custom import CustomSettlement
+    from eigen_zeth_tpu_torch.utils.config import global_env
 
+    bridge = BridgeService().start()
+    os.environ["BRIDGE_SERVICE_ADDR"] = bridge.url
+    global_env.cache_clear()  # the node reads BRIDGE_SERVICE_ADDR when it starts
     with scratch_dir() as crs_dir:
+        db_path = str(Path(crs_dir) / "zeth.db")
         node, server = node_and_prover_server(crs_dir, [
-            "--final-wrap", "stark", "--crs-dir", crs_dir, "--device", "cuda"])
+            "--final-wrap", "stark", "--crs-dir", crs_dir, "--device", "cuda"],
+            database="native", settlement="custom")
         addr = f"127.0.0.1:{server.port}"
         node_url = f"http://127.0.0.1:{node['server'].port}"
         client = RemoteBatchProver(addr)
@@ -1619,12 +1774,28 @@ def phase_stark_wrap(device, signed: list) -> dict:
                 crs_peak = torch.cuda.max_memory_allocated(device)
                 torch.cuda.reset_peak_memory_stats(device)
                 prover._stark_crs.clear()  # step 4 loads the CRS from its files, as a node does
+                vk = prover.pinned_vk(AGGREGATOR)
+                bridge.vk = vk  # the L1 verifier's role: verify-batches under the pinned VK
                 wire = []
                 log_wire(node["operator"].prover, wire)
+                engine = cl_driver.EngineClient(node_url, timeout=120.0)
+                ticked = []
+
+                def seal():
+                    ticked.append(cl_driver.tick(engine, AGGREGATOR))
+                    if ticked[-1] is None:
+                        raise AssertionError("the CL driver's forkchoiceUpdated built no payload")
+                    return ticked[-1]
+
+                def settled():
+                    done = bridge.state.verified
+                    return done[-1]["new_state_root"] if done else None
+
                 with timed_funcs(targets) as calls, serve_steps(prover) as served:
                     kernels.reset_launches()
                     # a failed step raises at once, with the server's message
-                    sealed = seal_and_prove(node, signed, served.results, 900, poll_s=5.0)
+                    sealed = seal_and_prove(node, signed, served.results, 900, poll_s=5.0,
+                                            seal=seal, settled=settled)
                 launches = dict(kernels.LAUNCHES)
                 times, steps = served.times, served.launches
             finally:
@@ -1681,7 +1852,6 @@ def phase_stark_wrap(device, signed: list) -> dict:
             pub = [int(x) for x in json.loads(result["publicInput"])]
             if pub != [wrap_circuit.final_public_input(stmts, AGGREGATOR)]:
                 raise AssertionError("the public input is not the statement hash of the chunks")
-            vk = prover.pinned_vk(AGGREGATOR)
             proof = json.loads(result["proof"])
             t = time.perf_counter()
             if not groth16.verify(vk, proof, pub):
@@ -1690,6 +1860,28 @@ def phase_stark_wrap(device, signed: list) -> dict:
             forged = dict(proof, pi_c=dict(proof["pi_a"]))
             if groth16.verify(vk, forged, pub):
                 raise AssertionError("a forged pi_c passes groth16.verify")
+            # the bridge: verify-batches accepted under the pinned VK by its own
+            # groth16.verify, the forged pi_c refused there too
+            accepted = bridge.state.verified
+            if bridge.vk is not vk or len(accepted) != 1 or (
+                    accepted[0]["proof"], accepted[0]["input"]) != (result["proof"],
+                                                                    result["publicInput"]):
+                raise AssertionError(f"the bridge did not record the served proof: {accepted}")
+            if len(bridge.state.sequenced) != 1:
+                raise AssertionError("the bridge did not sequence the batch")
+            try:
+                CustomSettlement(bridge.url).verify_batches(
+                    0, 1, 2, bytes(32), bytes.fromhex(block["stateRoot"][2:]), json.dumps(forged),
+                    result["publicInput"])
+            except RuntimeError as exc:
+                if "proof rejected" not in str(exc):
+                    raise
+            else:
+                raise AssertionError("the bridge accepted a forged pi_c")
+            if len(bridge.state.verified) != 1:
+                raise AssertionError("the bridge recorded a refused proof")
+            if int(ticked[0]["number"], 16) != L2_BLOCK or ticked[0]["hash"] != block["hash"]:
+                raise AssertionError("the CL driver's payload is not the node's block")
             bad = json.loads(r3.result_string)
             row = bad["children"][0]["wrap_proof"]["trace_openings"][0][0]["row"]
             row[0] = str((int(row[0]) + 1) % gl.P)
@@ -1702,6 +1894,22 @@ def phase_stark_wrap(device, signed: list) -> dict:
                 node["operator"].prover.close()
             client.close()
             server.stop(0)
+            bridge.stop()
+            node["db"].close()
+        # the node's native database after shutdown: reopened by the C++
+        # engine, and its log read by the python one, with the batch's records
+        records = []
+        for engine_cls in (NativeDb, kv.FileDb):
+            db = engine_cls(db_path)
+            stored = db.get_proof(L2_BLOCK)
+            records.append((stored and stored.proof, stored and stored.public_input,
+                            db.get_status(L2_BLOCK), db.get_u64(kv.KEY_LAST_VERIFIED_BLOCK_NUMBER),
+                            db.get(kv.KEY_PROVE_STEP_RECORD)))
+            db.close()
+        db_bytes = os.path.getsize(db_path)
+    want = (result["proof"], result["publicInput"], kv.Status.Finalized, L2_BLOCK, None)
+    if records != [want, want]:
+        raise AssertionError(f"the native database does not hold the batch's records: {records}")
     for step in ("gen_chunk_proof",):
         require_launches(f"stark wrap, {step}", steps[step], ("poseidon2",))
     require_launches("stark wrap, gen_aggregated_proof", steps["gen_aggregated_proof"],
@@ -1722,17 +1930,20 @@ def phase_stark_wrap(device, signed: list) -> dict:
                 scalars, g2):
             raise AssertionError(f"the device fixed-base differs from the host's ({n} scalars)")
 
-    log(f"[stark-wrap] the port's node at {node_url} (run --prover-addr {addr}), the prover "
-        f"server at {addr} (gRPC), ChainExecutor on the node: block {L2_BLOCK}, "
+    log(f"[stark-wrap] the devnet in one process: the bridge service at {bridge.url} (its "
+        f"verify-batches under the pinned VK), the port's node at {node_url} (run --settlement "
+        f"custom --database native --prover-addr {addr}), the prover server at {addr} (gRPC), "
+        f"ChainExecutor on the node, the CL driver's engine_forkchoiceUpdatedV3 / getPayloadV3 "
+        f"/ newPayloadV3 sealing: block {L2_BLOCK}, "
         f"{len(block['transactions'])} signed legacy transactions, {int(block['gasUsed'], 16)} "
         f"gas, a payload of {len(payload)} bytes, {r1.chunk_count} chunks of 4096 rows (blowup "
         f"4, 32 queries, terminal 64); wrap profile 11 queries, 12 grinding bits, blowup 32, "
         f"{prover.max_wrap_leaves} leaves")
-    log(f"[stark-wrap] node: eth_sendRawTransaction x {L2_TXS}: {sealed['send_s']:.3f} s; the "
-        f"sequencer executes and seals the block: {sealed['seal_s']:.3f} s; block sealed to "
-        f"proof served by eigenrpc_getBatchProof: {sealed['served_s']:.3f} s (polled every "
-        f"5 s); to settled "
-        f"(mock verify_batches, Finalized): {sealed['settled_s']:.3f} s")
+    log(f"[stark-wrap] node: eth_sendRawTransaction x {L2_TXS}: {sealed['send_s']:.3f} s; one "
+        f"cl_driver.tick (the engine API: execute and seal the block): {sealed['seal_s']:.3f} "
+        f"s; block sealed to proof served by eigenrpc_getBatchProof: {sealed['served_s']:.3f} "
+        f"s (polled every 5 s); to settled (the bridge's verify-batches under the pinned VK, "
+        f"Finalized): {sealed['settled_s']:.3f} s; the native database {db_bytes} bytes")
     log(f"[stark-wrap] ensure_wrap_crs: {t_crs:.3f} s, peak {crs_peak / 2**20:.0f} MiB, "
         f"launches {crs_launches}")
     for name, secs, mem in crs_stages:
@@ -1768,8 +1979,11 @@ def phase_stark_wrap(device, signed: list) -> dict:
     log(f"[stark-wrap] max_memory_allocated: {peak / 2**20:.1f} MiB (steps), "
         f"{crs_peak / 2**20:.1f} MiB (CRS)")
     log(f"[stark-wrap] launches: {launches}")
-    log(f"[stark-wrap] {L2_TXS}/{L2_TXS} transactions mined with status 1; eigenrpc serves "
-        f"the server's final proof, and the mock settlement recorded it; 2/2 chunk proofs pass "
+    log(f"[stark-wrap] {L2_TXS}/{L2_TXS} transactions mined with status 1 in the CL driver's "
+        f"block; eigenrpc serves the server's final proof; the bridge accepted it under the "
+        f"pinned VK and refused a forged pi_c; the native database, reopened by NativeDb and "
+        f"read by FileDb, holds the batch's proof, Finalized and the verified watermark; "
+        f"2/2 chunk proofs pass "
         f"verify_chunk; 2/2 wrap attestations pass verify_attestation_wrap under the pinned "
         f"profile ({t_verify:.3f} s); the payload opens with the node's state roots "
         f"(eth_getBlockByNumber) and the public input is the statement hash of the chunks; "
@@ -2016,6 +2230,65 @@ def phase_madd(device, points) -> dict:
     return launches
 
 
+MULTI_NTT_LOG2 = 20  # the sharded NTT's size
+MULTI_SHARDS = 4  # at least this many logical shards, laid over the cards
+MULTI_MOST_S = 15.0  # the phase's budget
+
+
+def phase_multidevice(device, points) -> dict:
+    """The multi-device layer on a (chunk, domain) mesh over every card, with
+    at least MULTI_SHARDS logical shards: `dryrun_multichip` at the path's
+    sizes (the domain-sharded NTT and its inverse at 2^20 Goldilocks
+    elements against the one-device `ntt`, `msm_dist_g1` on phase_msm's 2^18
+    points against the one-device `msm` and the host), and `entry()`'s
+    chunk-commit root against the same step on the CPU, under one
+    `profile_trace` whose trace must hold kernel E."""
+    from eigen_zeth_tpu_torch.parallel import dryrun, mesh
+    from eigen_zeth_tpu_torch.utils.profiling import profile_trace
+
+    t0 = time.perf_counter()
+    cards = mesh.default_devices()
+    shards = mesh.logical_shards(max(MULTI_SHARDS, len(cards)), cards)
+    names = sorted({torch.cuda.get_device_name(d) for d in cards})
+    log(f"[multi] {len(cards)} card(s) ({', '.join(names)}), {len(shards)} logical shards: "
+        f"{[str(d) for d in shards]}")
+    kernels.reset_launches()
+    t = time.perf_counter()
+    dry = dryrun.dryrun_multichip(len(shards), devices=cards, ntt_log2=MULTI_NTT_LOG2,
+                                  g1=points, scalar_bits=254)
+    times = {"dryrun_multichip": time.perf_counter() - t, **dry["times"]}
+
+    fn, (coeffs,) = dryrun.entry(device)
+    with scratch_dir() as tmp:
+        t = time.perf_counter()
+        with profile_trace(tmp) as path:
+            root = fn(coeffs)
+        times["entry under profile_trace"] = time.perf_counter() - t
+        trace = Path(path).read_text()
+    if not torch.equal(root.cpu(), fn(coeffs.cpu())):
+        raise AssertionError("entry()'s root on the card differs from the CPU's")
+    e_names = [k for k in ("hash_rows_kernel", "merkle_levels_kernel") if k in trace]
+    if not e_names:
+        raise AssertionError("the profile_trace around entry() holds no kernel E")
+    launches = dict(kernels.LAUNCHES)
+    require_launches("multi-device", launches, ("point_add", "point_add_masked", "poseidon2"))
+    total = time.perf_counter() - t0
+    for what, secs in times.items():
+        log(f"[multi] {what}: {secs:.3f} s")
+    n_chunk, n_domain = dry["mesh"]
+    log(f"[multi] dryrun_multichip({len(shards)}): mesh {dry['mesh']} (chunk x domain); "
+        f"ntt_sharded / intt_sharded of {dry['n']} over {n_domain} shards at each of "
+        f"{n_chunk} chunk positions bit-exact to ntt and the input, IntGroup MSM equal to "
+        f"numpy, msm_dist_g1 on {dry['ec_points']} points over {n_domain} shards equal to the "
+        f"one-device msm and the host; entry()'s root equal to the CPU's, its trace "
+        f"({len(trace)} bytes) holds kernel E ({', '.join(e_names)}); launches {launches}; "
+        f"{total:.3f} s in all")
+    if total > MULTI_MOST_S:
+        raise AssertionError(f"the multi-device phase took {total:.1f} s, over its "
+                             f"{MULTI_MOST_S} s budget")
+    return launches
+
+
 def phase(fn, *args):
     """fn(*args), its wall on the host clock logged."""
     t = time.perf_counter()
@@ -2040,12 +2313,13 @@ def main() -> int:
     paths = [phase(phase_slice, device)]
     points = test_points(device)
     paths += [phase(phase_msm, device, points), phase(phase_kzg, device),
-              phase(phase_madd, device, points)]
+              phase(phase_madd, device, points), phase(phase_multidevice, device, points),
+              phase(phase_keccak, device)]
     del points
     paths += [phase(phase_recursion, device),
               phase(phase_stark_wrap, device, signed["stark-wrap"]),
               phase(phase_node_in_process, device, signed["node"])]
-    names = [*KERNEL_WORK, "poseidon2", "poseidon_fr"]
+    names = [*KERNEL_WORK, "poseidon2", "poseidon_fr", "keccak256"]
     launches = {name: sum(path[name] for path in paths) for name in names}
     require_launches("main", launches, names)
     rows = [

@@ -5,25 +5,30 @@ its layout and its module and function names, so each counterpart is easy
 to find, and it imports `torch`, never `jax`.
 
 Layout:
-  ops/        Goldilocks and BN254 field arithmetic, NTT, Poseidon2 over
-              Goldilocks and over BN254 Fr, MSM, pairing; `ops/kernels.py`
-              builds and launches the CUDA kernels
+  ops/        Goldilocks and BN254 field arithmetic, NTT (radix-2, four-step),
+              Poseidon2 over Goldilocks and over BN254 Fr, MSM, pairing,
+              Keccak; `ops/kernels.py` builds and launches the CUDA kernels
   csrc/       the CUDA C++ sources of those kernels (built with nvcc at
               first use into `_build/`)
-  models/     Merkle, FRI, the chunk STARK (batched), the AIR prover and the
-              recursive verifier AIR, the wrap-profile STARK and its
-              in-circuit verifier (R1CS builder, wrap circuit), Groth16 and
-              its CRS files, KZG
+  models/     Merkle, FRI, the chunk STARK (batched, over a mesh's chunk
+              axis), the AIR prover and the recursive verifier AIR, the
+              wrap-profile STARK and its in-circuit verifier (R1CS builder,
+              wrap circuit), Groth16 and its CRS files, KZG
   protocol/   the batch prover service (`BatchProver`, `ChainExecutor`), the
               gRPC ProverService server and client (`grpc_shim.py`), the
               resumable proving state machine and its KV store, the
-              eigenrpc JSON-RPC server (`rpc.py`)
-  parallel/   chunk proving pipelined with host aggregation
-  sequencer/  the L2: mempool, tx filter, block builder and the EVM
-  settlement/ the L1 verifier's proof encoding, the mock and Ethereum
-              settlements, the proof / verify / rollup workers
+              eigenrpc JSON-RPC server (`rpc.py`), the reference's vectors
+  native/     the zethdb KV engine (C++, built with g++ at first use)
+  parallel/   chunk proving pipelined with host aggregation; the device
+              mesh, the domain-sharded NTT, the distributed MSM and the
+              driver's entry points (`dryrun.py`), one controller
+  sequencer/  the L2: mempool, tx filter, block builder, the EVM, the CL
+              driver over the engine API
+  settlement/ the L1 verifier's proof encoding, the mock, Ethereum and
+              custom (bridge-service) settlements, the bridge service, the
+              proof / verify / rollup workers
   utils/      the environment config, RLP, secp256k1 and transactions, the
-              Merkle-Patricia trie, headers, receipts, telemetry
+              Merkle-Patricia trie, headers, receipts, telemetry and traces
   operator.py the node's workers over a prover
   cli.py      `python -m eigen_zeth_tpu_torch run` (the node) and `prover`
               (the prover process), `init`

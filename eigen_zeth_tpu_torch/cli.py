@@ -9,8 +9,10 @@ more, `--device`: without `--prover-addr` and `--no-prover` the node proves
 in process on that device, the card unless `--device cpu` is given, and a
 missing CUDA device stops the command.  With `--prover-addr` (the
 reference's PROVER_ADDR topology) or `--no-prover` the node does no device
-work.  `--database native` and `--settlement custom` are not ported yet and
-raise.
+work.  `--database native` opens the C++ zethdb engine (built with g++ at
+first use; a failed build stops the command, with no fallback to FileDb), and
+`--settlement custom` settles through the bridge service at
+BRIDGE_SERVICE_ADDR (`settlement/bridge_mock.py` serves one).
 
 `prover` runs the prover-network side of a deployment: it serves
 ProverService over gRPC and proves on the card the blocks of the L2 it is
@@ -156,18 +158,9 @@ def prover_device(name: str, command: str = "prover") -> torch.device:
     return device
 
 
-def open_db(kind: str, path: str) -> kv.Database:
-    if kind == "native":
-        # the JAX package's open_db falls back to FileDb when its C++ engine
-        # does not load; the port has no such engine yet and says so
-        raise SystemExit("database 'native' (the zethdb C++ engine) is not ported yet "
-                         "(ROADMAP.md, M6b); use --database file or memory")
-    return kv.open_db(kind, path)
-
-
 def cmd_init(args) -> int:
     env = global_env()
-    db = open_db(args.database, args.db_path)
+    db = kv.open_db(args.database, args.db_path)
     chain_id = args.chain_id if args.chain_id is not None else env.chain_id
     genesis = {
         "chain_id": chain_id,
@@ -193,7 +186,7 @@ def cmd_run(args, wait: bool = True):
         args.db_path = args.datadir
     if args.instance > 1:
         args.rpc_port += args.instance - 1
-    db = open_db(args.database, args.db_path)
+    db = kv.open_db(args.database, args.db_path)
     tx_filter = (
         TxFilterConfig.from_conf_path(args.tx_filter_conf)
         if args.tx_filter_conf
@@ -215,6 +208,8 @@ def cmd_run(args, wait: bool = True):
     )
 
     settlement_kwargs = {}
+    if args.settlement == "custom":
+        settlement_kwargs["bridge_service_addr"] = env.bridge_service_addr
     if args.settlement == "ethereum":
         settlement_kwargs["config"] = args.settlement_conf
     settlement = init_settlement_provider(args.settlement, **settlement_kwargs)

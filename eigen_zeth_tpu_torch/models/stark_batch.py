@@ -13,6 +13,13 @@ byte-identical.
   fri      per layer: batched commit -> K roots -> per-chunk β -> batched fold
   queries  per layer, one gather and one host transfer for all chunks
 
+With a mesh, `prove_chunks` splits the K chunks over the mesh's chunk
+axis: K is padded with dummy chunks to a multiple of the axis (their
+proofs dropped, as in the JAX package), each position proves its
+contiguous share on its own device, one position after the other (one
+controller; the card works behind the host's launches), and since every
+chunk's transcript is its own the proofs are the serial ones.
+
 The JAX module's `commit_leaves_batched` and `_fold_phase` have no
 counterparts of their own: `merkle.commit_leaves` and `fri.fold_layer`
 take the leading chunk axis (a (K, 1) β folds each chunk with its own).
@@ -75,19 +82,25 @@ def _composition_phase(A_lde, D_lde, alphas, iv, out, *, n: int, blowup: int, ga
 
 
 def prove_chunks(datas: List[List[int]], ivs: List[int], params: StarkParams | None = None,
-                 n: int | None = None, *, device) -> List[dict]:
+                 n: int | None = None, *, device=None, mesh=None) -> List[dict]:
     """Prove K chunks at once on `device`; the proofs equal
     [stark.prove_chunk(d, iv, params, n_rows=n) for d, iv in zip(datas, ivs)]
     of the JAX package.  All chunks share the trace size n (default: the
-    size the serial prover would pick for the longest chunk)."""
+    size the serial prover would pick for the longest chunk).  With a mesh
+    (parallel.mesh.Mesh) the chunks are split over its chunk axis and
+    `device` is not used."""
     params = params or StarkParams()
     K = len(datas)
     assert K >= 1 and len(ivs) == K
-    gamma = chunk_gamma()
     if n is None:
         longest = max(len(d) for d in datas)
         n = max(4, 1 << longest.bit_length())
     assert all(len(d) <= n - 1 for d in datas)
+    if mesh is not None:
+        return _prove_over_mesh(datas, ivs, params, n, mesh)
+    if device is None:
+        raise TypeError("prove_chunks needs a device or a mesh")
+    gamma = chunk_gamma()
     m = n * params.blowup
 
     d_np = np.zeros((K, n), dtype=np.uint64)
@@ -151,3 +164,19 @@ def prove_chunks(datas: List[List[int]], ivs: List[int], params: StarkParams | N
             "trace_openings": openings,
         })
     return proofs
+
+
+def _prove_over_mesh(datas, ivs, params: StarkParams, n: int, mesh) -> List[dict]:
+    """K chunks split over the mesh's chunk axis: K padded with dummy chunks
+    to a multiple of the axis, each position's contiguous share proved on
+    its device, the dummies' proofs dropped."""
+    devices = mesh.chunk_devices()
+    K = len(datas)
+    pad = (-K) % len(devices)
+    datas, ivs = list(datas) + [[0]] * pad, list(ivs) + [0] * pad
+    share = len(datas) // len(devices)
+    proofs = []
+    for i, dev in enumerate(devices):
+        part = slice(i * share, (i + 1) * share)
+        proofs += prove_chunks(datas[part], ivs[part], params, n, device=dev)
+    return proofs[:K]

@@ -15,6 +15,7 @@ hasher:
   E poseidon2        csrc/poseidon2_gl.cu  eigen_zeth_tpu/ops/poseidon.py:431
   F poseidon_fr      csrc/poseidon2_fr.cuh eigen_zeth_tpu/ops/poseidon_fr.py:271
                      (its core; entries in poseidon2_fr.cu, _fr_perm.cu, _fr_tree.cu)
+  G keccak256        csrc/keccak.cu      eigen_zeth_tpu/ops/keccak.py:122, :152
 
 A and B carry the batch proof's MSMs; C is the serial step of the fast G1
 MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
@@ -35,6 +36,10 @@ the leaf sponge over Goldilocks rows packed 3 to an Fr element, and
 `poseidon_fr_merkle_levels`, a whole tree in one launch) that share one
 launch count; it commits the wrap-profile attestation's Fr Merkle trees and
 grinds its proof of work (ops/poseidon_fr.py keeps the plain versions).
+G is the batched keccak256 of ops/keccak.py (the JAX package's device
+Keccak, XLA code there): one thread per message, the 25 lanes in registers,
+every block absorbed in one launch.  As in the JAX package, no path of the
+node calls it; every Keccak of the node stays `keccak256_host`.
 Each source notes what bounds it on the H100 and what its design does
 about it (F's three entry points are three sources, poseidon2_fr.cu,
 poseidon2_fr_perm.cu and poseidon2_fr_tree.cu, so that they compile side by
@@ -113,6 +118,11 @@ KERNELS = {
         # poseidon2_fr_perm.cu, poseidon2_fr_tree.cu) share
         "source": "eigen_zeth_tpu_torch/csrc/poseidon2_fr.cuh",
         "replaces": "eigen_zeth_tpu/ops/poseidon_fr.py:271",
+    },
+    "keccak256": {
+        "route": "cuda",
+        "source": "eigen_zeth_tpu_torch/csrc/keccak.cu",
+        "replaces": "eigen_zeth_tpu/ops/keccak.py:122",
     },
 }
 # the point adds under a mask (the scans' select): the same entries, counted
@@ -206,6 +216,8 @@ SIGNATURES = {
     "poseidon_fr_perm": [_VP, _VP, _LL, _VP, _UI, _VP, _VP],
     "poseidon_fr_hash_rows": [_VP, _VP, _LL, _LL, _LL, _LL, _VP, _VP, _UI, _VP, _VP],
     "poseidon_fr_merkle_levels": [_VP, _LL, _VP, _VP, _VP, _VP, _UI, _VP, _VP],
+    # kernel G: the padded lanes, n, blocks a message, the digests, the stream
+    "keccak256": [_VP, _LL, _LL, _VP, _VP],
 }
 
 
@@ -811,6 +823,36 @@ def poseidon_fr_merkle_levels(digests: torch.Tensor) -> list[torch.Tensor]:
                             ctypes.cast(ptrs, ctypes.c_void_p), tickets.data_ptr(),
                             ctypes.cast(cap, ctypes.c_void_p))
     return outs
+
+
+# ---------------------------------------------------------------------------
+# kernel G: batched keccak256 (the plain version is in ops/keccak.py)
+
+
+def keccak256_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """Kernel G on padded messages: lanes (nblocks·17, n) int64 on a CUDA
+    device, lane l of block b of message i at [b·17 + l, i] -> the digests'
+    four lanes (4, n), lane-major."""
+    index = lanes.get_device()
+    if index < 0:
+        raise ValueError(f"keccak256: expected a CUDA tensor, got one on {lanes.device}")
+    if lanes.dtype is not torch.int64:
+        raise TypeError(f"keccak256: expected int64 lanes, got {lanes.dtype}")
+    if lanes.dim() != 2 or lanes.shape[0] == 0 or lanes.shape[0] % 17:
+        raise ValueError(f"keccak256: expected (blocks x 17, n) lanes, got {tuple(lanes.shape)}")
+    lanes = lanes.contiguous()
+    n = lanes.shape[1]
+    out = lanes.new_empty((4, n))
+    if n:
+        if not _fns:
+            _load()
+        with torch.cuda.device(index):
+            rc = _fns["keccak256"](lanes.data_ptr(), n, lanes.shape[0] // 17, out.data_ptr(),
+                                   torch._C._cuda_getCurrentRawStream(index))
+        if rc != 0:
+            raise RuntimeError(f"keccak256: kernel launch failed with cudaError {rc}")
+        LAUNCHES["keccak256"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,11 @@ each bucket's sum is gathered from its segment end, found with a
 searchsorted on the sorted digits.  An unsafe add that met P == +-Q or an accumulator at infinity
 raises `bad`, and the entry points then recompute through `msm_g1`.
 
-The window sums come back to the host affine, and the Horner combine
-Σ_w 2^(cw)·S_w runs on python ints.  An MSM result is one point whatever
+The window sums of these entry points come back to the host affine, and
+the Horner combine Σ_w 2^(cw)·S_w runs on python ints.  The generic `msm`
+keeps the combine on the device (`horner_windows`, group ops of any
+`G`), as the distributed MSM (parallel/msm_dist.py) does after its
+reduction; `IntGroup` is the mock group of the structural tests.  An MSM result is one point whatever
 the order of equal digits; the sorts are stable, as the JAX package's.
 """
 
@@ -165,6 +168,32 @@ class ECGroup:
         out = add(ctx, _tmap(flat, tuple(a)), _tmap(flat, tuple(b)), mask, keep)
         return PointJ(*_tmap(lambda t: t.reshape(shape), out))
 
+    def double(self, a: PointJ) -> PointJ:
+        """a + a through the complete add (kernel B on CUDA tensors)."""
+        return self.add(a, a)
+
+    def select(self, pred, a, b):
+        return _tmap(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+class IntGroup:
+    """Mock abelian group: 32-bit words with wraparound add (identity 0) on
+    int64 tensors.  Lets structural and multi-device tests run the whole
+    sort, scan, scatter and reduce pipeline of `msm_window_sums` at no cost;
+    Σ s_i·p_i is then checkable with plain numpy.  Elements carry a leading
+    axis of 1 where the EC points carry their 16 limbs."""
+
+    MASK = 0xFFFFFFFF
+
+    def add(self, a, b):
+        return _tmap(lambda x, y: (x + y) & self.MASK, a, b)
+
+    def add_select(self, mask, a, b, keep: int):
+        return self.select(mask, (a, b)[keep], self.add(a, b))
+
+    def double(self, a):
+        return self.add(a, a)
+
     def select(self, pred, a, b):
         return _tmap(lambda x, y: torch.where(pred, x, y), a, b)
 
@@ -266,6 +295,27 @@ def msm_window_sums(G, points, digits: torch.Tensor, c: int = DEFAULT_C):
     suffix = _blocked_scan(G, _tmap(scatter, scanned), reverse=True)
     # Σ_b b·B_b is the total of the suffix sums: the last element of their scan
     return _tmap(lambda l: l[..., -1], _blocked_scan(G, suffix))
+
+
+def horner_windows(G, S, n_windows: int, c: int):
+    """Σ_w 2^(cw)·S_w from window sums with leaves (..., W), Horner from the
+    top window, every step a group op of G on the sums' device."""
+    take = lambda w: _tmap(lambda leaf: leaf[..., w], S)  # noqa: E731
+    acc = take(n_windows - 1)
+    for w in range(n_windows - 2, -1, -1):
+        for _ in range(c):
+            acc = G.double(acc)
+        acc = G.add(acc, take(w))
+    return acc
+
+
+def msm(F, points: PointJ, digits: torch.Tensor, c: int = DEFAULT_C) -> PointJ:
+    """MSM core over the field ops F: Σ_i s_i·P_i from precomputed window
+    digits (W, N), points Jacobian with leaves (16, N) (z = 0 marks
+    infinity); one Jacobian point (leaves (16,)) out, on the points' device."""
+    G = ECGroup(F)
+    S = msm_window_sums(G, points, digits, c)
+    return horner_windows(G, S, digits.shape[0], c)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,11 @@ one bit-reversal gather, then log2(n) vectorized butterfly stages along the
 last axis.  Twiddles come from the host (numpy) once per (n, direction,
 device).
 
+The four-step decomposition n = R·C (`ntt_four_step`: size-R transforms
+along axis 0, a twiddle product, size-C transforms along axis 1, a
+transpose) is the JAX package's: `ntt_auto` takes it from 2^14 up, and the
+domain-sharded NTT (parallel/ntt_dist.py) splits the same plan over shards.
+
 `lde_columns` is the AIR prover's transform: INTT and coset LDE of a wide
 (columns, n) matrix a few columns at a time, because a butterfly stage and
 the field product inside it hold about ten temporaries of their operand's
@@ -15,6 +20,8 @@ size, and the extended matrix of a production attestation alone is 3.6 GB.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -82,6 +89,91 @@ def intt(x: torch.Tensor) -> torch.Tensor:
     return gl.mul(_butterflies(x.index_select(-1, rev), tw), scale)
 
 
+def raw(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Bit reversal and butterflies along the last axis, without the
+    inverse's 1/n (a four-step plan scales once, at the end)."""
+    rev, tw, _ = make_plan(x.shape[-1], inverse, x.device)
+    return _butterflies(x.index_select(-1, rev), tw)
+
+
+# ---------------------------------------------------------------------------
+# four-step decomposition
+
+
+@dataclass(frozen=True)
+class FourStepPlan:
+    n: int
+    rows: int  # R: the transforms along axis 0
+    cols: int  # C: the transforms along axis 1
+    inverse: bool
+    twiddle: torch.Tensor  # (R, C): w^{k1·j2}
+    scale: torch.Tensor | None  # 1/n (inverse only)
+
+
+_FOUR_STEP_PLANS: dict = {}
+
+
+def make_four_step_plan(n: int, rows: int, inverse: bool, device) -> FourStepPlan:
+    """The plan of n = rows·cols on `device` (made once per key)."""
+    key = (n, rows, inverse, torch.device(device))
+    if key not in _FOUR_STEP_PLANS:
+        cols = n // rows
+        assert rows * cols == n and rows & (rows - 1) == 0 and cols & (cols - 1) == 0
+        w = gl.primitive_root_of_unity(n)
+        if inverse:
+            w = gl.h_inv(w)
+        # every exponent k1·j2 is below R·C = n: one powers ladder and a gather
+        pw = gl.powers_np(w, n)
+        idx = np.outer(np.arange(rows, dtype=np.int64), np.arange(cols, dtype=np.int64))
+        scale = gl.full((), gl.h_inv(n), device) if inverse else None
+        _FOUR_STEP_PLANS[key] = FourStepPlan(n, rows, cols, inverse,
+                                             gl.from_int(pw[idx], device), scale)
+    return _FOUR_STEP_PLANS[key]
+
+
+def ntt_four_step(x: torch.Tensor, plan: FourStepPlan) -> torch.Tensor:
+    """Four-step NTT along the last axis, natural order in and out; the
+    inverse when the plan is.  With x viewed as (R, C) row-major
+    [j = j1·C + j2]:
+      1. size-R NTTs along axis 0
+      2. the twiddle w^{k1·j2}
+      3. size-C NTTs along axis 1
+      4. transpose: X[k1 + k2·R] = Y[k1, k2]"""
+    R, C = plan.rows, plan.cols
+    batch = x.shape[:-1]
+    v = x.reshape(batch + (R, C)).transpose(-1, -2)
+    v = raw(v, plan.inverse).transpose(-1, -2)
+    v = raw(gl.mul(v, plan.twiddle), plan.inverse)
+    out = v.transpose(-1, -2).reshape(x.shape)
+    return out if plan.scale is None else gl.mul(out, plan.scale)
+
+
+def intt_four_step(x: torch.Tensor, plan: FourStepPlan) -> torch.Tensor:
+    assert plan.inverse
+    return ntt_four_step(x, plan)
+
+
+# above this size `ntt_auto` takes the four-step plan, as in the JAX package
+FOUR_STEP_MIN = 1 << 14
+
+
+def _four_step_rows(n: int) -> int:
+    return 1 << ((n - 1).bit_length() // 2)
+
+
+def ntt_auto(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Size-adaptive NTT along the last axis: radix-2 below FOUR_STEP_MIN,
+    four-step from there.  The same values either way."""
+    n = x.shape[-1]
+    if n >= FOUR_STEP_MIN:
+        return ntt_four_step(x, make_four_step_plan(n, _four_step_rows(n), inverse, x.device))
+    return intt(x) if inverse else ntt(x)
+
+
+def intt_auto(x: torch.Tensor) -> torch.Tensor:
+    return ntt_auto(x, inverse=True)
+
+
 def coset_shift(x: torch.Tensor, shift: int, inverse: bool = False) -> torch.Tensor:
     """Multiply coefficient j by shift^j (evaluate on the coset shift·H)."""
     n = x.shape[-1]
@@ -95,6 +187,17 @@ def lde(coeffs: torch.Tensor, blowup: int, shift: int = gl.MULTIPLICATIVE_GENERA
     n = coeffs.shape[-1]
     padded = torch.nn.functional.pad(coset_shift(coeffs, shift), (0, n * (blowup - 1)))
     return ntt(padded)
+
+
+def poly_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Polynomial product via NTT along the last axis, both operands padded
+    to the power of two at or above the sum of their lengths (the JAX
+    package's size; the top coefficients come out zero)."""
+    n = a.shape[-1] + b.shape[-1]
+    m = 1 << (n - 1).bit_length()
+    fa = ntt(torch.nn.functional.pad(a, (0, m - a.shape[-1])))
+    fb = ntt(torch.nn.functional.pad(b, (0, m - b.shape[-1])))
+    return intt(gl.mul(fa, fb))
 
 
 # elements per block of `lde_columns`' output: 2^25 words are 256 MB, so a

@@ -10,8 +10,9 @@ Backends:
   * MemDb    — dict + lock (the reference's src/db/lfs/mem.rs analog)
   * FileDb   — append-only log + in-memory index, durable across restarts
                (the libmdbx analog, src/db/lfs/libmdbx.rs); pure python
-The JAX package's NativeDb (a C++ engine over the same log format) is not
-ported.
+  * NativeDb — the same log format served by the C++ engine in
+               native/zethdb.cpp through ctypes (`open_db("native")`); a
+               failed build or load raises, nothing falls back to FileDb
 """
 
 from __future__ import annotations
@@ -214,8 +215,12 @@ def open_db(kind: str = "memory", path: str | None = None) -> Database:
     """Factory (reference: src/db/lfs/mod.rs:14-19 — 'mdbx' | 'memory')."""
     if kind == "memory":
         return MemDb()
-    if kind in ("file", "mdbx"):
+    if kind in ("file", "mdbx", "native"):
         if not path:
             raise ValueError("file-backed database needs a path")
+        if kind == "native":
+            from ..native.zethdb import NativeDb
+
+            return NativeDb(path)
         return FileDb(path)
     raise ValueError(f"unknown database kind {kind!r}")

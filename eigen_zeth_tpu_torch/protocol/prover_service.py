@@ -58,6 +58,7 @@ from ..models import crs as crs_mod
 from ..models import groth16, recursion, stark, stark_batch, wrap_circuit
 from ..ops import keccak, poseidon
 from ..utils import rlp
+from . import vectors
 from .messages import (
     ChunkProof,
     FinalProof,
@@ -71,34 +72,6 @@ from .messages import (
 
 CHUNK_FIELD_ELEMS = 4094  # data elements per chunk (< one trace of 4096)
 CHUNK_TRACE_ROWS = 4096
-
-# The canned reference proof that DEBUG_PROOF=TRUE stamps on every batch
-# (the same values as eigen_zeth_tpu/protocol/vectors.py).
-REFERENCE_PROOF = {
-    "pi_a": {
-        "x": "17417480591305158925649477501478755112960263076414890363431950352106756703156",
-        "y": "3861645839258872471588434820677153286443622533258823533716073415753807193362",
-    },
-    "pi_b": {
-        "x": [
-            "1888192340250615284162548953478000113552765573288627153885483983991945077778",
-            "12839537089607918006526648939966606447200305496614910310480973165133791671186",
-        ],
-        "y": [
-            "9356128563962693123369145196078200120594297064426889980828801354429599038284",
-            "8356895530159769835834895094470393417156532106130004017665561138310422920909",
-        ],
-    },
-    "pi_c": {
-        "x": "4689980742433253475969746726233113733646868104702109866973549391946972020034",
-        "y": "7120799072200037615976388306327185991018815509189704120496254138703976052472",
-    },
-    "protocol": "groth16",
-    "curve": "BN128",
-}
-REFERENCE_PUBLIC_INPUT = [
-    "14190879858911742134402832400201910146341202868841835779272582838585145689449"
-]
 
 
 @dataclass
@@ -213,7 +186,10 @@ class BatchProver:
     wrap's CRS is persisted (the repo's artifacts/crs by default).
     max_wrap_leaves: the final circuit's fixed leaf count.  crs: an
     optional (r1cs, pk, vk) for the mimc / linear circuit (e.g. converted
-    from the JAX package's setup); by default setup runs once per process."""
+    from the JAX package's setup); by default setup runs once per process.
+    mesh: a parallel.mesh.Mesh whose chunk axis step 2 splits the chunks
+    over (each position proves its share on its own device; the proofs are
+    the serial ones, byte for byte); None proves them all on `device`."""
 
     def __init__(
         self,
@@ -232,6 +208,7 @@ class BatchProver:
         max_wrap_leaves: int = 2,
         *,
         device: torch.device,
+        mesh=None,
     ):
         if wrap not in ("stark", "mimc", "linear"):
             raise ValueError(f"unknown wrap circuit {wrap!r}")
@@ -277,6 +254,7 @@ class BatchProver:
         )
         self.max_wrap_leaves = max_wrap_leaves
         self.device = torch.device(device)
+        self.mesh = mesh
         self._groth16_seed = groth16_seed
         self._crs = crs
         self._stark_crs = {}  # shape key -> (pk, vk), loaded or generated
@@ -332,7 +310,8 @@ class BatchProver:
                 for i in range(chunk_count)
             ]
             starks = stark_batch.prove_chunks(
-                chunks, ivs, self.stark_params, n=self.chunk_trace_rows, device=self.device
+                chunks, ivs, self.stark_params, n=self.chunk_trace_rows, device=self.device,
+                mesh=self.mesh,
             )
             proofs = [
                 ChunkProof(
@@ -442,8 +421,8 @@ class BatchProver:
                 raise ValueError(f"unsupported curve {curve_name!r}")
             if debug_proof_enabled():
                 final = FinalProof(
-                    proof=json.dumps(REFERENCE_PROOF),
-                    public_input=json.dumps(REFERENCE_PUBLIC_INPUT),
+                    proof=json.dumps(vectors.reference_proof()),
+                    public_input=json.dumps(vectors.reference_public_input()),
                 )
             elif self.wrap == "stark":
                 final = self._gen_final_proof_stark(recursive_proof, aggregator_addr)

@@ -5,8 +5,7 @@ settlement/ethereum.py), Custom (bridge-service REST,
 settlement/custom.py), and Mock (in-memory, the test/devnet stand-in the
 reference lacks — its tests hit live services instead).
 
-A copy of eigen_zeth_tpu/settlement/interface.py.  Custom settlement is
-not ported yet (ROADMAP.md, M6b): asking for it raises."""
+A copy of eigen_zeth_tpu/settlement/interface.py."""
 
 from __future__ import annotations
 
@@ -131,9 +130,9 @@ def init_settlement_provider(spec: str, **kwargs) -> Settlement:
             cfg = EthereumSettlementConfig.from_conf_path(cfg)
         return EthereumSettlement(cfg)
     if spec == "custom":
-        raise NotImplementedError(
-            "settlement 'custom' (the bridge-service client) is not ported yet "
-            "(ROADMAP.md, M6b)")
+        from .custom import CustomSettlement
+
+        return CustomSettlement(kwargs.get("bridge_service_addr"))
     if spec == "mock":
         from .mock import MockSettlement
 

@@ -1,8 +1,16 @@
-"""Counters, timers and the prover's health block — copy of `Metrics`,
-`METRICS` and `ProverTelemetry` of eigen_zeth_tpu/utils/profiling.py.
+"""Profiling / tracing hooks, counters, timers and the prover's health
+block — port of eigen_zeth_tpu/utils/profiling.py.
 
-The JAX package's `profile_trace` (a JAX profiler hook) has no twin here
-yet; `chip_smoke.py` reads the card's share through `torch.profiler`.
+`profile_trace` is the JAX package's profiler hook on `torch.profiler`: a
+Chrome trace (viewable in Perfetto or chrome://tracing) of the host and,
+when a card is present, of its kernels, written into `log_dir`.
+
+Usage:
+    with profile_trace("/tmp/ezt-trace") as path:
+        prover.gen_chunk_proof(...)
+    # path: the trace file, written when the block ends
+or set EZT_PROFILE_DIR to trace without naming a directory.  `Metrics`,
+`METRICS` and `ProverTelemetry` are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -12,6 +20,31 @@ import os
 import threading
 import time
 import uuid
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None = None):
+    """torch.profiler trace around a block, saved as a Chrome trace in
+    log_dir (or $EZT_PROFILE_DIR); no trace when neither is given.  Records
+    CUDA activity when torch sees a card.  Yields the trace file's path
+    (None without a directory); the file is written when the block ends."""
+    log_dir = log_dir or os.environ.get("EZT_PROFILE_DIR")
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace-{os.getpid()}-{uuid.uuid4().hex[:12]}.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
 
 
 class Metrics:

@@ -12,7 +12,8 @@ that; the G2 and masked adds at an eighth; kernel E, Poseidon2 over
 Goldilocks, on rows of every kind of length, column-major and strided
 inputs, and a tiny attestation proved on the card against the CPU's;
 kernel F, Poseidon2 over BN254 Fr, through its three entry points with
-edge states, and the card's grind search against the host's).
+edge states, and the card's grind search against the host's; kernel G,
+the batched keccak256, at the edge lengths of the rate).
 Tolerance: none — kernel and
 plain version must agree bit for bit, and the MSMs must equal the host sum
 of scalar multiples.
@@ -650,3 +651,21 @@ def test_poseidon_fr_lazy_top_states_match_plain_and_host(entry):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         for i in (0, 3, 40):
             assert pfr.ints_from_words(got[0][i : i + 1]) == [pfr.hash_two_host(*leaves[2 * i : 2 * i + 2])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [0, 135, 136, 137, 272])
+def test_keccak256_kernel_matches_plain_and_host(length):
+    from eigen_zeth_tpu_torch.ops import keccak
+
+    dev = _cuda()
+    rng = np.random.default_rng(length)
+    msgs = torch.from_numpy(rng.integers(0, 256, (1000, length), dtype=np.uint8))
+    lanes = keccak.pad_lanes(msgs.to(dev))
+    before = kernels.LAUNCHES["keccak256"]
+    got = kernels.keccak256_lanes(lanes)
+    assert kernels.LAUNCHES["keccak256"] == before + 1
+    assert torch.equal(got, keccak.absorb_plain(lanes))
+    out = keccak.keccak256(msgs.to(dev)).cpu().numpy()
+    for i in (0, 1, 999):
+        assert bytes(out[i]) == keccak.keccak256_host(bytes(msgs[i].numpy()))

@@ -6,8 +6,10 @@ package's node.
   JSON-RPC requests (eth_*, eigenrpc_*, engine_*, bad requests) give the
   same response bytes.  Each package's chain executor reads the other's
   node over JSON-RPC and packs the same batch.
-- `init`, the stubs, and the arguments the port does not serve yet
-  (`--database native`, `--settlement custom`: an error that names them).
+- `init`, the stubs, `--database native` (the port's zethdb writes the
+  JAX package's FileDb bytes) and `--settlement custom` (the node starts
+  beside a bridge service; tests/test_torch_bridge_service.py settles
+  through one).
 - `run` proving in process with `--device cpu` (the test profile's small
   chunks): the proof served by eigenrpc_getBatchProof verifies under the
   JAX package's `groth16.verify` and the mock settlement records it; the
@@ -167,14 +169,18 @@ def test_init_stubs_and_unported_arguments(tmp_path):
     for stub in ("chain-info", "config"):
         with pytest.raises(NotImplementedError):
             cli.main([stub])
-    for argv in (["init", "--database", "native", "--db-path", str(tmp_path / "n")],
-                 run_args("--no-prover", "--database", "native", "--db-path",
-                          str(tmp_path / "n"))):
-        with pytest.raises(SystemExit, match="M6b"):
-            cli.main(argv)
-    with pytest.raises(NotImplementedError, match="M6b"):
-        cli.cmd_run(cli.build_parser().parse_args(run_args("--no-prover", "--settlement",
-                                                           "custom")), wait=False)
+    assert cli.main(["init", "--database", "native", "--db-path", str(tmp_path / "n.log")]) == 0
+    assert (tmp_path / "n.log").read_bytes() == (tmp_path / "j.log").read_bytes()
+    argv = run_args("--no-prover", "--settlement", "custom")
+    argv[argv.index("memory")] = "native"
+    handles = cli.cmd_run(cli.build_parser().parse_args(
+        argv + ["--db-path", str(tmp_path / "n.log")]), wait=False)
+    try:
+        assert type(handles["db"]).__name__ == "NativeDb"
+        assert json.loads(handles["db"].get(cli.GENESIS_KEY))["chain_id"] == CHAIN_ID
+    finally:
+        handles["shutdown"]()
+        handles["db"].close()
 
 
 def _spawn(module, args, logfile, **env):

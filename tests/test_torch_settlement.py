@@ -208,8 +208,8 @@ def test_ethereum_settlement_config_equal(tmp_path):
     got = p_eth.EthereumSettlementConfig.from_conf_path(str(conf))
     assert vars(got) == vars(j_eth.EthereumSettlementConfig.from_conf_path(str(conf)))
     assert got.local_account.lower() == "0x7e5f4552091a69125d5dfcb7b8c2659029395bdf"
-    with pytest.raises(NotImplementedError, match="M6b"):
-        p_iface.init_settlement_provider("custom", bridge_service_addr="http://127.0.0.1:1")
+    custom = p_iface.init_settlement_provider("custom", bridge_service_addr="http://127.0.0.1:1/")
+    assert (type(custom).__name__, custom.url) == ("CustomSettlement", "http://127.0.0.1:1")
     assert type(p_iface.init_settlement_provider("mock")).__name__ == "MockSettlement"
 
 

@@ -217,9 +217,12 @@ def test_file_db_record_survives_a_reopen(tmp_path):
     db.close()
 
 
-def test_open_db_kinds():
+def test_open_db_kinds(tmp_path):
     assert isinstance(kv.open_db("memory"), kv.MemDb)
-    with pytest.raises(ValueError, match="native"):
-        kv.open_db("native", "x")
+    with pytest.raises(ValueError, match="path"):
+        kv.open_db("native")
+    db = kv.open_db("native", str(tmp_path / "n.log"))
+    assert type(db).__name__ == "NativeDb"
+    db.close()
     with pytest.raises(ValueError, match="path"):
         kv.open_db("file")
