@@ -11,8 +11,10 @@ the entry points a user calls, and checks every stage:
      times the integer-rate probe beside the rate the bounds assume
   3. holds each kernel against its plain PyTorch version, bit for bit, at
      its path's shape (A and B at 32 windows x 1,326 MSM points, C and D at
-     20 windows x 8,192 lanes, the power at 32 window sums, the G2 add at
-     32 windows x 896 points; the point adds also under a mask, all set,
+     20 windows x 8,192 lanes, the power at 32 window sums and at 2^16,
+     the fixed-base's batch, the G2 add at 32 windows x 896 points and at
+     366,012, the stark wrap's phase-1 lane width, both timed; the point
+     adds also under a mask, all set,
      none set and mixed, for both kept operands; kernel E, Poseidon2 over
      Goldilocks, through its four entry points: the sponge over the
      attestation trace's 2^21 rows of 216 columns as the AIR prover hands
@@ -159,8 +161,12 @@ MSM_LOG2 = 18  # the fast MSM's size: 2^18 points
 MSM_C, MSM_SERIAL, MSM_GROUP = 13, 32, 32
 STEP_BATCH = 20 * (1 << MSM_LOG2) // MSM_SERIAL  # 20 windows x 8,192 lanes: kernel C's batch
 POW_BATCH = 32  # window sums that one to_affine inverts
+POW_SETUP_BATCH = 1 << 16  # the stark wrap's fixed-base chunk that one to_affine inverts
 G2_POINTS = 896  # the wrap circuit's 884 G2 points, padded to full serial lanes
 G2_BATCH = 32 * G2_POINTS
+# the stark wrap's G2 MSM: 11,712,366 points padded to 11,712,384, over its
+# 32 serial steps, is 366,012 lanes of phase 1
+G2_WRAP_BATCH = 11_712_384 // 32
 # batches for the device times: the card's work must outlast the host's
 # enqueue, and the operands must not fit the 50 MB L2 cache
 BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
@@ -184,26 +190,37 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MADS_PER_S = 67e12 / 4
 MADS_PER_MONT_MUL = 8 * 8 + 8 * 8 + 8  # a·b, m·q and the eight m = t0·n0
 MADS_PER_MONT_SQR = 36 + 8 * 8 + 8  # 28 cross terms once and 8 squares, then as above
+# An Fq2 product on the G2 add's two lanes: on each lane a sum of two
+# products and one reduction (csrc/bn254_field.cuh: mont_mul2_lanes); an Fq2
+# squaring: one product on each lane.
+MADS_PER_FQ2_MUL = 2 * (2 * 8 * 8 + 8 * 8 + 8)
+MADS_PER_FQ2_SQR = 2 * MADS_PER_MONT_MUL
 POW_EXPONENT = bn254.Q - 2  # Fermat inversion, the power the paths take
+POW_PRODUCTS, POW_SQUARINGS = kernels.pow_chain(kernels.pow_schedule(POW_EXPONENT))
 # per element: bytes moved (each (16,) int32 limb plane 64 B, each mask 4 B,
-# inputs read once, outputs written once), Montgomery products and Montgomery
-# squarings (the dedicated squaring needs fewer multiply-adds).  The point
-# adds count the generic add, the least the function needs: 11 products and
-# 5 squarings for G1; over Fq2 three Fq products to a product and two to a
-# squaring, all of them real products.  The mixed add of C and D is 7
-# products and 4 squarings.  The power counts one squaring per bit below the
-# top one and one product per set bit below it.  Under a mask the passed
-# elements move their 6 (G2: 12) planes and take no product: `bound` scales
-# the work by the share of elements that are added.
+# inputs read once, outputs written once) and multiply-adds.  The point adds
+# count the generic add, the least the function needs: 11 products and 5
+# squarings.  For G2 and for the power the multiply-adds are those the
+# kernel executes, not the least the function could take, so that the bound
+# is the least time of the work each kernel does: an Fq2 product on two
+# lanes is 400 multiply-adds and a squaring 272, where Karatsuba over full
+# Fq products takes 408 and lazy Karatsuba (three products, two
+# reductions) 336; the power counts the sliding-window chain the kernel runs
+# on its exponent at kernels.POW_WINDOW bits (kernels.pow_chain: the
+# table's products and squaring, each window's squarings and product; for
+# q - 2, 55 products where 5 bits would take 53).  The mixed add of C and D
+# is 7 products and 4 squarings.  Under a mask the passed elements move their 6
+# (G2: 12) planes and take no product: `bound` scales the work by the share
+# of elements that are added.
 KERNEL_WORK = {
-    "mont_mul": (3 * 64, 1, 0),
-    "point_add": (9 * 64, 11, 5),
-    "point_scan_step": (8 * 64 + 3 * 4, 7, 4),
-    "point_madd": (8 * 64 + 4, 7, 4),
-    "mont_pow": (2 * 64, bin(POW_EXPONENT).count("1") - 1, POW_EXPONENT.bit_length() - 1),
-    "point_add_g2": (18 * 64, 11 * 3 + 5 * 2, 0),
-    "point_add_masked": (9 * 64 + 4, 11, 5),
-    "point_add_g2_masked": (18 * 64 + 4, 11 * 3 + 5 * 2, 0),
+    "mont_mul": (3 * 64, MADS_PER_MONT_MUL),
+    "point_add": (9 * 64, 11 * MADS_PER_MONT_MUL + 5 * MADS_PER_MONT_SQR),
+    "point_scan_step": (8 * 64 + 3 * 4, 7 * MADS_PER_MONT_MUL + 4 * MADS_PER_MONT_SQR),
+    "point_madd": (8 * 64 + 4, 7 * MADS_PER_MONT_MUL + 4 * MADS_PER_MONT_SQR),
+    "mont_pow": (2 * 64, POW_PRODUCTS * MADS_PER_MONT_MUL + POW_SQUARINGS * MADS_PER_MONT_SQR),
+    "point_add_g2": (18 * 64, 11 * MADS_PER_FQ2_MUL + 5 * MADS_PER_FQ2_SQR),
+    "point_add_masked": (9 * 64 + 4, 11 * MADS_PER_MONT_MUL + 5 * MADS_PER_MONT_SQR),
+    "point_add_g2_masked": (18 * 64 + 4, 11 * MADS_PER_FQ2_MUL + 5 * MADS_PER_FQ2_SQR),
 }
 # Kernel E: a Goldilocks product is four 32 x 32 wide multiply-adds (the
 # 128-bit product; the fold is shifts, adds and compares), a squaring three
@@ -509,8 +526,7 @@ def bound(name: str, n: int, added: float = 1.0, mads_per_s: float = INT32_MADS_
     over the integer rate.  `added`: under a mask, the share of elements
     that are added; the others move two thirds of the planes (one operand
     in, out again) and take no product."""
-    nbytes, muls, sqrs = KERNEL_WORK[name]
-    mads = muls * MADS_PER_MONT_MUL + sqrs * MADS_PER_MONT_SQR
+    nbytes, mads = KERNEL_WORK[name]
     passed = (nbytes - 4) * 2 // 3 + 4  # the mask, one operand in, the output
     by_bytes = n * (added * nbytes + (1 - added) * passed) / HBM_BYTES_PER_S * 1e3
     by_ops = n * added * mads / mads_per_s * 1e3
@@ -760,6 +776,15 @@ def phase_kernels(device) -> dict:
             f"(16, {r['device_batch']}), bound {r['device_bound_ms']:.4f} ms by "
             f"{r['device_bound_by']} ({r['device_probed_bound_ms']:.4f} ms by "
             f"{r['device_probed_bound_by']} at the probed multiply-add rate)")
+    log(f"[kernels] mont_pow at (16, {results['mont_pow']['setup_batch']}), the fixed-base's "
+        f"to_affine: {results['mont_pow']['setup_ms']:.4f} ms, bit-exact against its plain "
+        f"version; its chain on q - 2: "
+        f"{POW_PRODUCTS} products and {POW_SQUARINGS} squarings (windows of "
+        f"{kernels.POW_WINDOW} bits)")
+    log(f"[kernels] point_add_g2 at (16, {results['point_add_g2']['wrap_batch']}), the stark "
+        f"wrap's phase-1 lanes: {results['point_add_g2']['wrap_ms']:.4f} ms, bit-exact against "
+        f"its plain version bare and under a mixed mask, the degenerate cases in the last "
+        f"warp's tail")
     results["poseidon2"] = poseidon2
     results["poseidon_fr"] = _phase_poseidon_fr_kernel(device, rng)
     results["keccak256"] = _phase_keccak_kernel(device, rng)
@@ -1183,13 +1208,17 @@ def _phase_carry_edges(device) -> None:
 
 def _phase_pow_kernel(device, rng) -> dict:
     """`mont_pow` against its plain version and python's pow, Fq and Fr, on
-    0, 1, q - 1 and random values, exponents 0, 1, 2, q - 2 and random."""
+    0, 1, q - 1 and random values, exponents 0, 1, 2, the window's edges
+    2^w - 1, 2^w, 2^w + 1, q - 2 and random; at (16, 2^16), the fixed-base's
+    batch, against its plain version to q - 2 and timed."""
     err = 0
+    w = kernels.POW_WINDOW
     for modulus in (bn254.Q, bn254.R):
         ctx = bn254.mont_ctx(modulus)
         vals = [0, 1, modulus - 1] + [v % modulus for v in _random_fq(rng, POW_BATCH - 3)]
         a = ctx.from_int(vals, device)
-        for e in (0, 1, 2, modulus - 2, int.from_bytes(rng.bytes(32), "little")):
+        for e in (0, 1, 2, (1 << w) - 1, 1 << w, (1 << w) + 1, modulus - 2,
+                  int.from_bytes(rng.bytes(32), "little")):
             got = kernels.mont_pow(ctx, a, e)
             err = max(err, _compare(f"mont_pow (exponent {e})", (got,),
                                     (kernels.mont_pow_plain(ctx, a, e),)))
@@ -1198,17 +1227,28 @@ def _phase_pow_kernel(device, rng) -> dict:
     ctx = bn254.fq()
     a = ctx.from_int(_random_fq(rng, POW_BATCH), device)
     big_a = random_limbs(BIG_POINT, device, 3)
+    setup_a = random_limbs(POW_SETUP_BATCH, device, 4)
+    err = max(err, _compare(f"mont_pow at (16, {POW_SETUP_BATCH})",
+                            (kernels.mont_pow(ctx, setup_a, POW_EXPONENT),),
+                            (kernels.mont_pow_plain(ctx, setup_a, POW_EXPONENT),)))
     return {
         "max_abs_err": err,
         **timings("mont_pow", POW_BATCH, lambda: kernels.mont_pow(ctx, a, POW_EXPONENT),
                   lambda: kernels.mont_pow_plain(ctx, a, POW_EXPONENT), 1,
                   BIG_POINT, lambda: kernels.mont_pow(ctx, big_a, POW_EXPONENT)),
+        "setup_batch": POW_SETUP_BATCH,
+        "setup_ms": cuda_time_ms(lambda: kernels.mont_pow(ctx, setup_a, POW_EXPONENT), 20),
+        "products": POW_PRODUCTS,
+        "squarings": POW_SQUARINGS,
     }
 
 
 def _phase_g2_kernel(device, rng) -> dict:
     """The G2 add, plain and masked, against its plain version, with the
-    degenerate cases on real G2 points checked against host arithmetic."""
+    degenerate cases on real G2 points checked against host arithmetic; at
+    the stark wrap's phase-1 width (366,012), with those cases in the last
+    warp's tail, against its plain version too, bare and under a mixed mask
+    for both kept operands, and timed bare."""
     ctx = bn254.fq()
     H2 = bn254.HOST_FQ2
     G2 = (bn254.G2_GEN_X, bn254.G2_GEN_Y)
@@ -1240,19 +1280,40 @@ def _phase_g2_kernel(device, rng) -> dict:
         return tuple((random_limbs(BIG_POINT, device, seed + 2 * c),
                       random_limbs(BIG_POINT, device, seed + 2 * c + 1)) for c in range(3))
 
+    def wrap_point(seed, head):
+        """G2_WRAP_BATCH random elements that end in head's degenerate cases:
+        366,012 leaves 12 pairs in the last warp, so they fall in its tail."""
+        return tuple(tuple(torch.cat((random_limbs(G2_WRAP_BATCH - len(P), device, seed + 2 * c + j),
+                                      head[c][j][:, : len(P)]), dim=1) for j in range(2))
+                     for c in range(3))
+
     big_p, big_q = big_point(30), big_point(40)
+    wrap_p, wrap_q = wrap_point(50, p), wrap_point(60, q)
+    err = max(err, _compare(f"point_add_g2 at (16, {G2_WRAP_BATCH})",
+                            _leaves(kernels.point_add_g2(ctx, wrap_p, wrap_q)),
+                            _leaves(kernels.point_add_g2_plain(ctx, wrap_p, wrap_q))))
     out = {"point_add_g2": {
         "max_abs_err": err,
         **timings("point_add_g2", n, lambda: kernels.point_add_g2(ctx, p, q),
                   lambda: kernels.point_add_g2_plain(ctx, p, q), 3,
                   BIG_POINT, lambda: kernels.point_add_g2(ctx, big_p, big_q)),
+        "wrap_batch": G2_WRAP_BATCH,
+        "wrap_ms": cuda_time_ms(lambda: kernels.point_add_g2(ctx, wrap_p, wrap_q), 20),
     }}
     masks = _masks(rng, n, device)
     big_mask = _masks(rng, BIG_POINT, device)[2]
+    wrap_mask = _masks(rng, G2_WRAP_BATCH, device)[2]
+    err = _check_masked("point_add_g2", kernels.point_add_g2, kernels.point_add_g2_plain,
+                        ctx, p, q, masks)
+    for keep in (0, 1):
+        err = max(err, _compare(f"point_add_g2 at (16, {G2_WRAP_BATCH}) (keep = {keep})",
+                                _leaves(kernels.point_add_g2(ctx, wrap_p, wrap_q, wrap_mask, keep)),
+                                _leaves(kernels.point_add_g2_plain(ctx, wrap_p, wrap_q,
+                                                                   wrap_mask, keep))))
+    del wrap_p, wrap_q, wrap_mask
     added = 1.0 - float((masks[2] != 0).float().mean())
     out["point_add_g2_masked"] = {
-        "max_abs_err": _check_masked("point_add_g2", kernels.point_add_g2,
-                                     kernels.point_add_g2_plain, ctx, p, q, masks),
+        "max_abs_err": err,
         **timings("point_add_g2_masked", n,
                   lambda: kernels.point_add_g2(ctx, p, q, masks[2], 0),
                   lambda: kernels.point_add_g2_plain(ctx, p, q, masks[2], 0), 3,
@@ -1971,9 +2032,13 @@ def phase_stark_wrap(device, signed: list) -> dict:
         k += name == "trace"
         log(f"[stark-wrap] gen_aggregated_proof, attestation {k}: {name}: {secs:.3f} s "
             f"(peak so far {mem / 2**20:.0f} MiB)")
+    msms = 0
     for name, _, secs in calls.times:
+        msms += name == "msm_affine"
         if name != "prove_chunk":
-            log(f"[stark-wrap] gen_final_proof: {name}: {secs:.3f} s")
+            # groth16.prove's second MSM is B's, over b2_query: the G2 MSM
+            label = f"{name} (the G2 MSM)" if name == "msm_affine" and msms == 2 else name
+            log(f"[stark-wrap] gen_final_proof: {label}: {secs:.3f} s")
     log(f"[stark-wrap] total of the four steps: server {sum(times.values()):.3f} s, node "
         f"{sum(w['node_s'] for w in wire):.3f} s (the operator's RemoteBatchProver calls)")
     log(f"[stark-wrap] max_memory_allocated: {peak / 2**20:.1f} MiB (steps), "

@@ -30,7 +30,11 @@
 //     chain as its addend;
 //   * a squaring computes the 28 cross products once, doubles them, adds
 //     the 8 diagonal squares and reduces the 16-word result: 108
-//     multiply-adds for 136.
+//     multiply-adds for 136;
+//   * an Fq2 element lives on two neighbouring lanes of a warp, one
+//     component each (`Fq2Lanes`): an Fq2 product is, on each lane, a sum of
+//     two products and ONE reduction (`mont_mul2_lanes`), the partner's
+//     words arriving by shuffle.
 //
 // The probe in imad_probe.cu puts numbers to it (chip_smoke.py prints them):
 // an H100 at 700 W ran bare wide multiply-adds at 10.1 T/s and chains of
@@ -57,6 +61,7 @@
 namespace ezt {
 
 constexpr int kWords = 8;  // 32-bit words per element: R = 2^256
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
 // The modulus travels by value in the kernel's parameter space, so every
 // q[j] read below is a constant-bank operand of the multiply.
@@ -233,6 +238,31 @@ __device__ __forceinline__ void reduce_row(uint32_t (&E)[kWords],
   O[7] = madc_hi(m.q[7], mi, O[7]);
 }
 
+// T += a*b in place, no shift: the same two chains as reduce_row with (a,
+// b) for (q, mi).  E: columns 0..7, O: columns 1..8.
+__device__ __forceinline__ void mul_row(uint32_t (&E)[kWords],
+                                        uint32_t (&O)[kWords],
+                                        const uint32_t (&a)[kWords],
+                                        uint32_t b) {
+  E[0] = mad_lo_cc(a[0], b, E[0]);
+  E[1] = madc_hi_cc(a[0], b, E[1]);
+#pragma unroll
+  for (int j = 2; j < kWords; j += 2) {
+    E[j] = madc_lo_cc(a[j], b, E[j]);
+    E[j + 1] = madc_hi_cc(a[j], b, E[j + 1]);
+  }
+  O[7] = addc(O[7], 0);
+  O[0] = mad_lo_cc(a[1], b, O[0]);
+  O[1] = madc_hi_cc(a[1], b, O[1]);
+#pragma unroll
+  for (int j = 2; j < kWords - 2; j += 2) {
+    O[j] = madc_lo_cc(a[j + 1], b, O[j]);
+    O[j + 1] = madc_hi_cc(a[j + 1], b, O[j + 1]);
+  }
+  O[6] = madc_lo_cc(a[7], b, O[6]);
+  O[7] = madc_hi(a[7], b, O[7]);
+}
+
 // Drop column 0 (E[0] == 0 after reduce_row) and add a*b one column down:
 // O becomes the new even array (columns 0..7) and E the new odd one
 // (columns 1..8).  E[1], which moves to column 0, is added to O[0] and its
@@ -283,6 +313,59 @@ __device__ __forceinline__ Fe mont_mul_fe(const Fe& a, const Fe& b,
     reduce_row(o, e, m);
     if (i + 1 < kWords) {
       shift_mul_row(o, e, a, b.w[i + 1]);
+      reduce_row(e, o, m);
+    }
+  }
+  // o is the even array now, e the odd one: drop column 0 and merge
+  Fe r;
+  r.w[0] = add_cc(e[0], o[1]);
+#pragma unroll
+  for (int k = 1; k < kWords - 1; ++k) r.w[k] = addc_cc(e[k], o[k + 1]);
+  r.w[kWords - 1] = addc(e[kWords - 1], 0);
+  return cond_sub_q(r, m);
+}
+
+// The two-lane Fq2 product's one CIOS pass (Fq2Lanes::mul):
+// (a0*y0 + a1*y1)*2^-256 mod q, canonical, where y0 = hi ? pb : b,
+// y1 = hi ? b : pb and pb is the partner lane's b, shuffled in one word a
+// round (so no lane holds the partner's whole operand).  Each round adds the
+// two rows a0*y0[i] and a1*y1[i] before its one reduction row: 2 x 64 + 72
+// multiply-adds, where two products and an add take 2 x 136.  Every lane of
+// the warp must call it together.  Range (q < 2^254, a0 < q, a1 <= q, b,
+// pb < q): the sum is below 2q^2, so after round i the running value is
+// below (2q*2^(32(i+1)) + q*2^(32(i+1))) / 2^(32(i+1)) = 3q and within a
+// round below 3q + 3q*2^32 < 2^288, inside columns 0..8 as the one-product
+// chain; the result (sum + M*q)/2^256 < 2q^2/2^256 + q < 1.5q, so one
+// conditional subtraction makes it canonical.
+__device__ __forceinline__ Fe mont_mul2_lanes(const Fe& a0, const Fe& a1,
+                                              const Fe& b, bool hi,
+                                              const Modulus& m) {
+  uint32_t e[kWords], o[kWords];
+  uint32_t pb = __shfl_xor_sync(kFullWarp, b.w[0], 1);
+  const uint32_t y = hi ? pb : b.w[0];
+#pragma unroll
+  for (int j = 0; j < kWords; j += 2) {
+    e[j] = (j == 0) ? mad_lo_cc(a0.w[j], y, 0) : madc_lo_cc(a0.w[j], y, 0);
+    e[j + 1] = madc_hi_cc(a0.w[j], y, 0);
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; j += 2) {
+    o[j] = (j == 0) ? mad_lo_cc(a0.w[j + 1], y, 0)
+                    : madc_lo_cc(a0.w[j + 1], y, 0);
+    o[j + 1] = madc_hi_cc(a0.w[j + 1], y, 0);
+  }
+  mul_row(e, o, a1.w, hi ? b.w[0] : pb);
+  reduce_row(e, o, m);
+#pragma unroll
+  for (int i = 1; i < kWords; i += 2) {
+    pb = __shfl_xor_sync(kFullWarp, b.w[i], 1);
+    shift_mul_row(e, o, a0, hi ? pb : b.w[i]);
+    mul_row(o, e, a1.w, hi ? b.w[i] : pb);
+    reduce_row(o, e, m);
+    if (i + 1 < kWords) {
+      pb = __shfl_xor_sync(kFullWarp, b.w[i + 1], 1);
+      shift_mul_row(o, e, a0, hi ? pb : b.w[i + 1]);
+      mul_row(e, o, a1.w, hi ? b.w[i + 1] : pb);
       reduce_row(e, o, m);
     }
   }
@@ -399,17 +482,14 @@ __device__ __forceinline__ Fe mont_sqr_fe(const Fe& a, const Modulus& m) {
 }
 
 // ---------------------------------------------------------------------------
-// Fq2 = Fq[u]/(u^2 + 1): an element is c0 + c1*u.
-
-struct Fe2 {
-  Fe c0, c1;
-};
-
 // One interface over Fq and Fq2 elements, for the point add that G1 and G2
-// share (kPlanes limb planes per element at the kernel boundary).
+// share (kPlanes limb planes per element at the kernel boundary, kLanes
+// lanes per element).
+
 struct FqField {
   using El = Fe;
   static constexpr int kPlanes = 1;
+  static constexpr int kLanes = 1;
   __device__ __forceinline__ static El load(const int32_t* const* p, int64_t n,
                                             int64_t i) {
     return load_fe(p[0], n, i);
@@ -449,54 +529,103 @@ struct FqField {
   }
 };
 
-struct Fq2Field {
-  using El = Fe2;
+// Fq2 = Fq[u]/(u^2 + 1), an element c0 + c1*u on two neighbouring lanes of a
+// warp: the even lane holds c0, the odd lane c1 (`El` is the lane's own
+// component).  Adds, subtractions and selects are the Fq ones on each lane;
+// a product or a squaring takes the partner's component by shuffle, and the
+// two lanes run the same instructions on operands they select, so a pair
+// never splits its warp.  Every lane of the warp must call mul, sqr and
+// is_zero together (full-warp shuffles), and a predicate handed to select
+// must be the same on both lanes of a pair.  Needs q < 2^254 (BN254's q is
+// below 2^253.6); the wrapper checks it.
+__device__ __forceinline__ Fe shfl_partner(const Fe& a) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) r.w[k] = __shfl_xor_sync(kFullWarp, a.w[k], 1);
+  return r;
+}
+
+// a + b as 256-bit integers, no reduction (the caller keeps it below 2^256)
+__device__ __forceinline__ Fe add_raw(const Fe& a, const Fe& b) {
+  Fe s;
+  s.w[0] = add_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int k = 1; k < kWords - 1; ++k) s.w[k] = addc_cc(a.w[k], b.w[k]);
+  s.w[kWords - 1] = addc(a.w[kWords - 1], b.w[kWords - 1]);
+  return s;
+}
+
+// q - a for a <= q, no reduction: q itself for a = 0
+__device__ __forceinline__ Fe q_minus(const Fe& a, const Modulus& m) {
+  Fe d;
+  d.w[0] = sub_cc(m.q[0], a.w[0]);
+#pragma unroll
+  for (int k = 1; k < kWords - 1; ++k) d.w[k] = subc_cc(m.q[k], a.w[k]);
+  d.w[kWords - 1] = subc(m.q[kWords - 1], a.w[kWords - 1]);
+  return d;
+}
+
+struct Fq2Lanes {
+  using El = Fe;
   static constexpr int kPlanes = 2;
+  static constexpr int kLanes = 2;
+  __device__ __forceinline__ static bool odd() { return threadIdx.x & 1; }
   __device__ __forceinline__ static El load(const int32_t* const* p, int64_t n,
                                             int64_t i) {
-    return {load_fe(p[0], n, i), load_fe(p[1], n, i)};
+    return load_fe(p[odd()], n, i);
   }
   __device__ __forceinline__ static void store(int32_t* const* p, int64_t n,
                                                int64_t i, const El& a) {
-    store_fe(p[0], n, i, a.c0);
-    store_fe(p[1], n, i, a.c1);
+    store_fe(p[odd()], n, i, a);
   }
-  __device__ __forceinline__ static El zero() { return {zero_fe(), zero_fe()}; }
+  __device__ __forceinline__ static El zero() { return zero_fe(); }
+  // both components zero: the pair's two answers, and-ed
   __device__ __forceinline__ static bool is_zero(const El& a) {
-    return is_zero_fe(a.c0) && is_zero_fe(a.c1);
+    const unsigned z = is_zero_fe(a);
+    return (z & __shfl_xor_sync(kFullWarp, z, 1)) != 0;
   }
   __device__ __forceinline__ static El select(bool pred, const El& a,
                                               const El& b) {
-    return {select_fe(pred, a.c0, b.c0), select_fe(pred, a.c1, b.c1)};
+    return select_fe(pred, a, b);
   }
   __device__ __forceinline__ static El add(const El& a, const El& b,
                                            const Modulus& m) {
-    return {add_fe(a.c0, b.c0, m), add_fe(a.c1, b.c1, m)};
+    return add_fe(a, b, m);
   }
   __device__ __forceinline__ static El sub(const El& a, const El& b,
                                            const Modulus& m) {
-    return {sub_fe(a.c0, b.c0, m), sub_fe(a.c1, b.c1, m)};
+    return sub_fe(a, b, m);
   }
   __device__ __forceinline__ static El dbl(const El& a, const Modulus& m) {
-    return {dbl_fe(a.c0, m), dbl_fe(a.c1, m)};
+    return dbl_fe(a, m);
   }
   __device__ __forceinline__ static El neg(const El& a, const Modulus& m) {
-    return {neg_fe(a.c0, m), neg_fe(a.c1, m)};
+    return neg_fe(a, m);
   }
-  // Karatsuba, three Fq products:
-  // (a0 + a1 u)(b0 + b1 u) = (a0 b0 - a1 b1) + ((a0+a1)(b0+b1) - a0 b0 - a1 b1) u
+  // (a0 + a1 u)(b0 + b1 u) = (a0 b0 - a1 b1) + (a0 b1 + a1 b0) u, each
+  // component a sum of two products with one reduction (lazy reduction):
+  //   even lane: a0*b0 + (q - a1)*b1      odd lane: a1*b0 + a0*b1
+  // q - a1 stands for -a1 (it is q for a1 = 0, which mont_mul2_lanes'
+  // range allows) and keeps the sum non-negative: below 2q^2.  The lane
+  // takes its partner's a whole, and b one word a round.
   __device__ __forceinline__ static El mul(const El& a, const El& b,
                                            const Modulus& m) {
-    const Fe t0 = mont_mul_fe(a.c0, b.c0, m);
-    const Fe t1 = mont_mul_fe(a.c1, b.c1, m);
-    const Fe t2 = mont_mul_fe(add_fe(a.c0, a.c1, m), add_fe(b.c0, b.c1, m), m);
-    return {sub_fe(t0, t1, m), sub_fe(sub_fe(t2, t0, m), t1, m)};
+    const bool hi = odd();
+    const Fe pa = shfl_partner(a);
+    return mont_mul2_lanes(a, select_fe(hi, pa, q_minus(pa, m)), b, hi, m);
   }
-  // Two Fq products: (a0 + a1 u)^2 = (a0+a1)(a0-a1) + 2 a0 a1 u
+  // (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u, one product a lane:
+  //   even lane: (a0 + a1) * (a0 + q - a1)    odd lane: a0 * (a1 + a1)
+  // unreduced factors below 2q: their product is below 4q^2 < q*2^256, so
+  // mont_mul_fe's chain stays inside columns 0..8 (within a round below
+  // 3q + 3q*2^32 < 2^288) and its result below 4q^2/2^256 + q < 2q, which
+  // its one conditional subtraction makes canonical.
   __device__ __forceinline__ static El sqr(const El& a, const Modulus& m) {
-    const Fe t0 = mont_mul_fe(add_fe(a.c0, a.c1, m), sub_fe(a.c0, a.c1, m), m);
-    const Fe t1 = mont_mul_fe(a.c0, a.c1, m);
-    return {t0, dbl_fe(t1, m)};
+    const bool hi = odd();
+    const Fe pa = shfl_partner(a);
+    const Fe x = add_raw(pa, select_fe(hi, zero_fe(), a));
+    const Fe y = add_raw(a, select_fe(hi, a, q_minus(pa, m)));
+    return mont_mul_fe(x, y, m);
   }
 };
 

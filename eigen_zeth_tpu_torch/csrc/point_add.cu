@@ -18,8 +18,7 @@
 // What bounds it on the H100: the integer multiply pipe.  The generic add
 // (add-2007-bl with Z3 = ((Z1+Z2)^2 - Z1Z1 - Z2Z2)*H) is 11 products and 5
 // squarings over 9 x 64 bytes of limb traffic (G2: the same count of Fq2
-// operations, three Fq products to a product and two to a squaring, over
-// 18 x 64 bytes).  The design:
+// operations over 18 x 64 bytes).  The design:
 //
 //   * the field core of bn254_field.cuh: two carry chains in flight per
 //     thread, a dedicated squaring;
@@ -32,19 +31,35 @@
 //     and a lane that passes an operand (by the mask or because the other
 //     is at infinity) reads it again at the end and stores with the rest of
 //     its warp, so every output line is written once;
-//   * registers are the limit (six G1 inputs alone are 48 words, six G2
-//     inputs 96).  Operands are loaded where they are first used, and the
-//     operand an infinity passes through is read again at the end instead
-//     of being held.  `__launch_bounds__` asks for 4 blocks of 128 threads
-//     per SM for both: 128 registers, with a few dozen bytes of spills for
-//     G1 and about 1.5 KB for G2.  Measured at 2^18 pairs on an H100
-//     (scripts/tune_point_add.py), G1: 0.100 ms so, 0.105 ms at 148
-//     registers without spills (2 or 3 blocks of 128, 4 or 6 of 64), 0.131
-//     ms with one block of 256, 0.111 ms at 80 registers.  G2: 0.487 ms so,
-//     0.56 ms at 168 registers, 0.63-0.65 ms at the 255 cap (180 bytes of
-//     spills), 0.62 ms at 96: more warps to hide the chains' latency are
-//     worth the spills up to four blocks.  ptxas's registers and spills
-//     are in the build log.
+//   * registers are the limit.  Operands are loaded where they are first
+//     used, and the operand an infinity passes through is read again at the
+//     end instead of being held.  G1, one lane a point: `__launch_bounds__`
+//     asks for 4 blocks of 128 threads per SM, 128 registers with a few
+//     dozen bytes of spills.  Measured at 2^18 pairs on an H100
+//     (scripts/tune_point_add.py): 0.100 ms so, 0.105 ms at 148 registers
+//     without spills (2 or 3 blocks of 128, 4 or 6 of 64), 0.131 ms with
+//     one block of 256, 0.111 ms at 80 registers;
+//   * G2 runs on two lanes a point (`Fq2Lanes`): a lane holds one component
+//     of each Fq2 coordinate, six Fq inputs as G1 does, and an Fq2 product
+//     is on each lane a sum of two products with one reduction, 200
+//     multiply-adds a lane, 400 a pair where Karatsuba over full products
+//     took 408 on one lane; a squaring is one product a lane.  A pair has
+//     both lanes take the same branch: its mask, its infinities and its
+//     flags are the pair's.  One lane a point (six Fq2 inputs, 96 words,
+//     and Karatsuba's three reductions) could not have both occupancy and
+//     no spills: 0.487 ms at 128 registers with 1.5 KB of spills, 0.56 ms
+//     at 168 without, 0.62-0.65 ms at 96 and at the 255 cap.  Two lanes
+//     still need about 170 registers: the first two-lane form, which took
+//     the partner's b whole, ran 0.243 ms at 128 registers with 44 bytes of
+//     spills, 0.254 ms at 168 with 40 and 0.299 ms at 194 without
+//     (scripts/tune_point_add.py, H100 at 700 W); reordering the add's
+//     products or the doubling did not remove them.  Taking b one word a
+//     round instead (mont_mul2_lanes) removes them at 3 blocks of 128 per
+//     SM (EZT_ADD_G2_LANE_BLOCKS): 166 registers, 0.2534 ms.  Three blocks
+//     are chosen to have no spills, not for speed: the same code at 4
+//     blocks spills 72 bytes and runs 0.2476 ms, and the first two-lane
+//     form at 4 blocks 0.2437 ms (H100 at 700 W, the tuning script's
+//     table), 2-4% faster; a redesign that frees registers starts there.
 
 #include <cuda_runtime.h>
 
@@ -60,17 +75,18 @@ namespace {
 #ifndef EZT_ADD_G1_BLOCKS
 #define EZT_ADD_G1_BLOCKS 4
 #endif
-#ifndef EZT_ADD_G2_BLOCKS
-#define EZT_ADD_G2_BLOCKS 4
+#ifndef EZT_ADD_G2_LANE_BLOCKS
+#define EZT_ADD_G2_LANE_BLOCKS 3
 #endif
 
 constexpr int kThreads = EZT_ADD_THREADS;
-constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
+using ezt::kFullWarp;
 using ezt::Modulus;
 
 // Limb-plane pointers of one launch: p = (x, y, z), q = (x, y, z), out =
-// (x, y, z), each coordinate F::kPlanes planes of (16, n) int32.
+// (x, y, z), each coordinate F::kPlanes planes of (16, n) int32.  Element i
+// is on F::kLanes neighbouring lanes.
 template <class F>
 struct PointArgs {
   const int32_t* p[3][F::kPlanes];
@@ -81,7 +97,7 @@ struct PointArgs {
 };
 
 // The sum of the lane's pair of points into (X3, Y3, Z3), for every lane of a
-// warp at once (both votes need all 32 lanes).  Lanes without `work` run on
+// warp at once (the votes and Fq2Lanes' shuffles need all 32 lanes).  Lanes without `work` run on
 // zeros.  Returns 0 where the sum stands, 1 where operand p passes (q at
 // infinity), 2 where q passes (p at infinity; inf + inf = q, an infinity
 // too).
@@ -147,7 +163,9 @@ template <class F, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     point_add_kernel(PointArgs<F> args, int64_t n, Modulus m) {
   using El = typename F::El;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  static_assert(F::kLanes == 1 || F::kLanes == 2, "one or two lanes a point");
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t i = F::kLanes == 1 ? t : t >> 1;
   const bool active = i < n;
   const bool pass = active && args.mask != nullptr && args.mask[i] != 0;
   const bool work = active && !pass;
@@ -191,7 +209,7 @@ int launch(const void* const* p, const void* const* q, void* const* out,
     }
   args.mask = static_cast<const int32_t*>(mask);
   args.keep = keep;
-  long long blocks = (n + kThreads - 1) / kThreads;
+  long long blocks = (n * F::kLanes + kThreads - 1) / kThreads;
   point_add_kernel<F, kMinBlocks>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(args, n,
@@ -220,11 +238,11 @@ extern "C" int ezt_point_add(const void* ax, const void* ay, const void* az,
 
 // G2.  planes: 18 device pointers to (16, n) int32 limb planes, in the order
 // p.x.c0, p.x.c1, p.y.c0, p.y.c1, p.z.c0, p.z.c1, then q's six, then the six
-// of the output.  The rest as for G1.
+// of the output.  The modulus must lie below 2^254.  The rest as for G1.
 extern "C" int ezt_point_add_g2(const void* const* planes, long long n,
                                 const void* q_words, unsigned n0,
                                 const void* mask, int keep, void* stream) {
-  return launch<ezt::Fq2Field, EZT_ADD_G2_BLOCKS>(planes, planes + 6,
-                                  const_cast<void* const*>(planes + 12), mask,
-                                  keep, n, q_words, n0, stream);
+  return launch<ezt::Fq2Lanes, EZT_ADD_G2_LANE_BLOCKS>(
+      planes, planes + 6, const_cast<void* const*>(planes + 12), mask, keep, n,
+      q_words, n0, stream);
 }

@@ -20,9 +20,10 @@ hasher:
 A and B carry the batch proof's MSMs; C is the serial step of the fast G1
 MSM (ops/msm.py:g1_window_sums_fast, the KZG's MSM) and D the unsafe mixed
 add behind bn254.point_madd_unsafe.  `mont_pow` is a whole power (Fermat
-inversion) in one launch; `point_add_g2` is B over Fq2; both point adds take
-an optional mask that passes one operand through (the select of the MSM
-scans).  E is Poseidon2 over Goldilocks on a lazy-reduction field core, one
+inversion) in one launch, a sliding window whose schedule `pow_schedule`
+makes here; `point_add_g2` is B over Fq2, two lanes a point; both point adds
+take an optional mask that passes one operand through (the select of the
+MSM scans).  E is Poseidon2 over Goldilocks on a lazy-reduction field core, one
 thread per state, with four entry points (`poseidon2_perm`,
 `poseidon2_hash_rows`, `poseidon2_hash_two`, and `poseidon2_merkle_levels`,
 a whole Merkle tree in one launch) that share one launch count;
@@ -59,6 +60,7 @@ to `LAUNCHES["poseidon2"]`, each of F's to `LAUNCHES["poseidon_fr"]`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -359,20 +361,90 @@ def mont_mul_plain(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ctx._cond_sub_q(hi, extra).to(torch.int32)
 
 
-def mont_pow(ctx, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent (Montgomery in and out) on (16, n) int32 limbs, for a host
-    integer 0 <= exponent < 2^256: one launch for the whole square-and-multiply
-    chain.  a^0 = one for every a, so inv(0) = 0^(q-2) = 0."""
-    if not a.is_cuda:
-        return mont_pow_plain(ctx, a, exponent)
+POW_WINDOW = 4  # the sliding window's width, 4 or 5 (csrc/mont_mul.cu holds 16 odd powers)
+POW_MAX_STEPS = 72  # csrc/mont_mul.cu: kPowMaxSteps; 256 bits in windows of 4: 65 steps at most
+NO_PRODUCT = 0xFF
+
+
+def pow_schedule(exponent: int, width: int = POW_WINDOW) -> list[tuple[int, int]]:
+    """The sliding-window chain of a^exponent as (squarings, digit) pairs,
+    top window first: r = a^digit for the first pair, then for each later
+    one `squarings` squarings and a product by a^digit (digit 0: none, the
+    exponent's trailing zeros).  Digits are odd and below 2^width; a window
+    starts at a set bit and ends at the lowest set bit within `width` bits.
+    e = 0; e = (e << squarings) + digit over the pairs rebuilds the
+    exponent; 0 has no pair."""
     if not 0 <= exponent < 1 << 256:
         raise ValueError("mont_pow: the exponent must lie in [0, 2^256)")
+    steps: list[tuple[int, int]] = []
+    pos, pending = exponent.bit_length() - 1, 0
+    while pos >= 0:
+        if not exponent >> pos & 1:
+            pending, pos = pending + 1, pos - 1
+            continue
+        low = max(pos - width + 1, 0)
+        while not exponent >> low & 1:
+            low += 1
+        length = pos - low + 1
+        steps.append((pending + length if steps else 0, exponent >> low & ((1 << length) - 1)))
+        pending, pos = 0, low - 1
+    if pending:
+        steps.append((pending, 0))
+    return steps
+
+
+def pow_table(steps) -> int:
+    """The odd powers a, a^3, ... that a schedule uses (its table's entries)."""
+    return (max(d for _, d in steps) + 1) // 2 if steps else 0
+
+
+def pow_chain(steps) -> tuple[int, int]:
+    """(products, squarings) that `mont_pow`'s kernel runs for a schedule:
+    the table's a^2 and its products a^3 = a·a^2, a^5 = a^3·a^2, ..., then
+    every window's squarings and its product by a table entry."""
+    table = pow_table(steps)
+    products = max(table - 1, 0) + sum(1 for _, d in steps[1:] if d)
+    squarings = (table > 1) + sum(sq for sq, _ in steps)
+    return products, squarings
+
+
+class PowSchedule(ctypes.Structure):
+    """csrc/mont_mul.cu's PowSchedule: entry j of the table is a^(2j + 1)."""
+
+    _fields_ = [("steps", ctypes.c_int32), ("table", ctypes.c_int32),
+                ("squarings", ctypes.c_uint8 * POW_MAX_STEPS),
+                ("entry", ctypes.c_uint8 * POW_MAX_STEPS)]
+
+
+@functools.lru_cache(maxsize=64)
+def pow_schedule_struct(exponent: int, width: int = POW_WINDOW) -> PowSchedule:
+    """`pow_schedule` in the kernel's layout, made once per exponent."""
+    if width not in (4, 5):  # 16 odd powers at most; 256 bits in at most 65 steps
+        raise ValueError(f"mont_pow: the window's width must be 4 or 5, got {width}")
+    steps = pow_schedule(exponent, width)
+    s = PowSchedule(len(steps), max(pow_table(steps), 1))
+    for k, (sq, d) in enumerate(steps):
+        s.squarings[k], s.entry[k] = sq, (d - 1) // 2 if d else NO_PRODUCT
+    return s
+
+
+def mont_pow(ctx, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent (Montgomery in and out) on (16, n) int32 limbs, for a host
+    integer 0 <= exponent < 2^256: one launch for the whole sliding-window
+    chain (`pow_schedule`).  a^0 = one for every a, so inv(0) = 0^(q-2) = 0."""
+    if not a.is_cuda:
+        return mont_pow_plain(ctx, a, exponent)
+    return _launch_pow(ctx, a, pow_schedule_struct(exponent))
+
+
+def _launch_pow(ctx, a: torch.Tensor, schedule: PowSchedule) -> torch.Tensor:
+    """One launch of the power kernel on CUDA limbs a with a made schedule
+    (scripts/tune_mont_pow.py hands it other widths)."""
     n = _check_limbs("mont_pow", (a,))
     out = torch.empty_like(a)
     if n:
-        e = _words(exponent)
         _launch("mont_pow", ctx, (a.data_ptr(), out.data_ptr()), a.device, n,
-                ctypes.cast(e, ctypes.c_void_p), _consts(ctx).one)
+                ctypes.addressof(schedule), _consts(ctx).one)
     return out
 
 
@@ -447,6 +519,8 @@ def point_add_g2(ctx, p, q, mask: torch.Tensor | None = None, keep: int = 0):
     tensors = tuple(t for point in (p, q) for coord in point for t in coord)
     if not any(t.is_cuda for t in tensors):
         return point_add_g2_plain(ctx, p, q, mask, keep)
+    if ctx.q >> 254:
+        raise ValueError("point_add_g2: the two-lane Fq2 core needs a modulus below 2^254")
     n = _check_limbs("point_add_g2", tensors)
     outs = tuple(torch.empty_like(tensors[0]) for _ in range(6))
     if n:

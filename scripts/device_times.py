@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of kernels A, B, C, D, E and F of the port, for one checkout
-or several in turn, on one NVIDIA GPU.
+"""Device times of kernels A, B (G1 and G2), C, D, E, F and the power of the
+port, for one checkout or several in turn, on one NVIDIA GPU.
 
     python3 scripts/device_times.py [ROOT ...]
 
@@ -12,6 +12,11 @@ csrc/, and prints one JSON line: per kernel the time of one launch at a batch
 where the card's work outlasts the host's enqueue ((16, 2^20) random canonical
 Fq elements for A, (16, 2^18) for the point kernels; the operands exceed the
 L2 cache), CUDA events around 20 back-to-back launches, median of 3.
+The G2 add at (16, 2^18) unmasked and with a fixed mask that passes one
+element in 8 (operand p kept), and at the stark wrap's 366,012 phase-1
+lanes; the power `mont_pow` to q - 2 (Fermat inversion) at (16, 2^18),
+at (16, 2^16), the fixed-base chunk's to_affine, and at (16, 32), the
+window sums' to_affine, where it is one warp's chain of dependent products.
 Kernel E (Poseidon2 over Goldilocks) through the calls its users make:
 `poseidon.perm` on 2^18 states, `poseidon.hash_elements` on the
 attestation's (2^21, 216) rows, column-major as the AIR prover hands them
@@ -40,6 +45,8 @@ import time
 from pathlib import Path
 
 BIG_FIELD, BIG_POINT = 1 << 20, 1 << 18
+G2_WRAP = 11_712_384 // 32  # the stark wrap's G2 MSM: its phase-1 lanes
+POW_BATCHES = (1 << 18, 1 << 16, 32)
 E_PERMS, E_ROWS, E_COLS = 1 << 18, 1 << 21, 216
 F_PERMS, F_ROWS = (1 << 14, 1 << 18), 1 << 23
 F_TOP_LEAVES = (1 << 15, 1 << 16, 1 << 17)
@@ -103,6 +110,18 @@ def measure(root: str) -> dict:
         "point_madd": time_ms(lambda: kernels.point_madd(ctx, p, q[:2])),
     }
     del a, b, p, q, sgn, flg
+    for n, tag in ((BIG_POINT, ""), (G2_WRAP, f"_{G2_WRAP}")):
+        p2, q2 = (tuple((limbs(n), limbs(n)) for _ in range(3)) for _ in range(2))
+        out["point_add_g2" + tag] = time_ms(lambda: kernels.point_add_g2(ctx, p2, q2))
+        if not tag:
+            mask = (torch.arange(n, device=dev, dtype=torch.int32) % 8 == 0).to(torch.int32)
+            out["point_add_g2_masked"] = time_ms(
+                lambda: kernels.point_add_g2(ctx, p2, q2, mask, 0))
+        del p2, q2
+    for n in POW_BATCHES:
+        x = limbs(n)
+        out[f"mont_pow_{n}"] = time_ms(lambda: kernels.mont_pow(ctx, x, bn254.Q - 2))
+    del x
     states = words(E_PERMS, 12)
     out["poseidon2_perm"] = time_ms(lambda: poseidon.perm(states))
     del states

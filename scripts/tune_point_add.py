@@ -5,7 +5,8 @@
     python3 scripts/tune_point_add.py
 
 Builds the source once per variant (threads per block, blocks per SM asked of
-ptxas for the G1 and for the G2 instantiation; all nvcc runs start together),
+ptxas for the G1 form and for the G2 form, whose point takes two lanes:
+EZT_ADD_G1_BLOCKS and EZT_ADD_G2_LANE_BLOCKS; all nvcc runs start together),
 prints ptxas's registers and spills, and times the G1 and the G2 add at
 2^18 pairs of random canonical field elements: CUDA events around 20
 back-to-back launches, median of 3, the variants taken in turns twice so
@@ -32,8 +33,8 @@ from eigen_zeth_tpu_torch.ops import bn254, kernels  # noqa: E402
 
 N = 1 << 18
 # (threads, G1 blocks per SM, G2 blocks per SM)
-VARIANTS = [(64, 4, 2), (64, 6, 3), (64, 8, 4), (128, 2, 1), (128, 3, 1), (128, 4, 2),
-            (128, 4, 3), (128, 4, 4), (128, 5, 5), (128, 6, 6), (256, 1, 1), (256, 2, 1)]
+VARIANTS = [(64, 4, 4), (64, 4, 6), (64, 4, 8), (128, 4, 2), (128, 4, 3), (128, 4, 4),
+            (128, 4, 5), (128, 4, 6), (256, 2, 1), (256, 2, 2), (256, 2, 3), (512, 1, 1)]
 
 
 def build(out_dir: Path):
@@ -41,7 +42,7 @@ def build(out_dir: Path):
     for threads, g1, g2 in VARIANTS:
         lib = out_dir / f"point_add_{threads}_{g1}_{g2}.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", f"-DEZT_ADD_THREADS={threads}",
-               f"-DEZT_ADD_G1_BLOCKS={g1}", f"-DEZT_ADD_G2_BLOCKS={g2}", "-o", str(lib),
+               f"-DEZT_ADD_G1_BLOCKS={g1}", f"-DEZT_ADD_G2_LANE_BLOCKS={g2}", "-o", str(lib),
                str(kernels.CSRC / "point_add.cu")]
         jobs.append((lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                            text=True)))
@@ -50,7 +51,7 @@ def build(out_dir: Path):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(log)
-        usage = re.findall(r"(Fq2?Field).*?(\d+) bytes spill stores.*?Used (\d+) registers",
+        usage = re.findall(r"(FqField|Fq2Lanes).*?(\d+) bytes spill stores.*?Used (\d+) registers",
                            log, flags=re.S)
         # the entries' types are the package's own (kernels.SIGNATURES)
         fns = kernels.bind(ctypes.CDLL(str(lib)), ("point_add", "point_add_g2"))
@@ -115,7 +116,7 @@ def main() -> int:
     print("threads  G1 blocks/SM  regs  spill B   G1 ms            "
           "G2 blocks/SM  regs  spill B   G2 ms")
     for (threads, b1, b2), (_, usage) in zip(VARIANTS, libs):
-        (r1, s1), (r2, s2) = usage["FqField"], usage["Fq2Field"]
+        (r1, s1), (r2, s2) = usage["FqField"], usage["Fq2Lanes"]
         t = rows[(threads, b1, b2)]
         print(f"{threads:7d}  {b1:12d}  {r1:4d}  {s1:7d}   {t[0][0]:.4f} {t[1][0]:.4f}    "
               f"{b2:12d}  {r2:4d}  {s2:7d}   {t[0][1]:.4f} {t[1][1]:.4f}")

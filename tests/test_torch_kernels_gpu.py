@@ -13,7 +13,10 @@ Goldilocks, on rows of every kind of length, column-major and strided
 inputs, and a tiny attestation proved on the card against the CPU's;
 kernel F, Poseidon2 over BN254 Fr, through its three entry points with
 edge states, and the card's grind search against the host's; kernel G,
-the batched keccak256, at the edge lengths of the rate).
+the batched keccak256, at the edge lengths of the rate; the G2 add's two
+lanes a point at batches that cut a pair or a warp, with every degenerate
+case at every place in a warp; the power's sliding window at its edge
+exponents, batches 1, 32 and 2^16 + 3).
 Tolerance: none — kernel and
 plain version must agree bit for bit, and the MSMs must equal the host sum
 of scalar multiples.
@@ -183,6 +186,8 @@ def test_cuda_tensors_never_take_a_plain_version():
         kernels.point_add_g2(ctx, g2, g2, mask=sgn[:32].contiguous())
     with pytest.raises(ValueError):
         kernels.mont_mul(bigint.MontCtx((1 << 256) - 189), acc[0], acc[0])
+    with pytest.raises(ValueError):  # the two-lane Fq2 core's range: q < 2^254
+        kernels.point_add_g2(bigint.MontCtx((1 << 254) + 1), g2, g2)
 
 
 EDGE_WORDS = [0, 1, 2, (1 << 256) - 1, (1 << 255) - 1, (1 << 224) - 1, 0xFFFFFFFF,
@@ -311,6 +316,134 @@ def test_masked_point_add_matches_plain(group, keep):
     zero = zero if group == "g1" else tuple(zip(zero[::2], zero[1::2]))
     out = add(ctx, *((zero, q) if keep == 0 else (p, zero)), torch.ones_like(mixed), keep)
     assert all(int(t.abs().sum()) == 0 for t in _leaves(out))
+
+
+def _jacobian_g2(pt, z):
+    """Affine G2 point (None: infinity) as Jacobian (x z^2, y z^3, z)."""
+    H2 = bn254.HOST_FQ2
+    if pt is None:
+        return (0, 0), (0, 0), (0, 0)
+    z2 = H2.mul(z, z)
+    return H2.mul(pt[0], z2), H2.mul(pt[1], H2.mul(z2, z)), z
+
+
+# the five degenerate pairings of the complete add, by the index of the
+# operands in `_g2_real_points`: generic, P + P, P + (-P), inf + Q, P + inf
+G2_CASES = ("generic", "double", "opposite", "p_inf", "q_inf")
+POINTS_PER_WARP = 16  # two lanes a G2 point
+
+
+def _g2_real_points():
+    H2 = bn254.HOST_FQ2
+    G2 = (bn254.G2_GEN_X, bn254.G2_GEN_Y)
+    a, b = bn254.h_ec_mul(5, G2, H2), bn254.h_ec_mul(9, G2, H2)
+    return {"generic": (a, b), "double": (a, a), "opposite": (a, (a[0], H2.neg(a[1]))),
+            "p_inf": (None, b), "q_inf": (a, None)}
+
+
+def _g2_case_inputs(dev, n, seed):
+    """Two batches of n G2 points: random field elements, with each
+    degenerate pairing placed at the first, the middle and the last point of
+    a warp (warp c for case c, where n has it) and at the batch's last
+    point, every real point at a random Jacobian z.  Returns the planes and
+    {index: (P, Q)} of the real pairs."""
+    rng = np.random.default_rng(seed)
+    ctx = bn254.fq()
+    real = _g2_real_points()
+    warps = -(-n // POINTS_PER_WARP)
+    where = {}
+    for c, case in enumerate(G2_CASES):
+        base = (c % warps) * POINTS_PER_WARP
+        for at in (base, base + POINTS_PER_WARP // 2, base + POINTS_PER_WARP - 1):
+            if at < n:
+                where[at] = real[case]
+    where[n - 1] = real[G2_CASES[(n - 1) % len(G2_CASES)]]
+    cols = [[_rand_ints(rng, n, bn254.Q) for _ in range(6)] for _ in range(2)]
+    for at, pair in where.items():
+        for side, pt in enumerate(pair):
+            z = tuple(_rand_ints(rng, 2, bn254.Q))
+            for c, coord in enumerate(_jacobian_g2(pt, z)):
+                cols[side][2 * c][at], cols[side][2 * c + 1][at] = coord
+
+    def planes(side):
+        t = [ctx.from_int(v, dev) for v in cols[side]]
+        return tuple((t[2 * c], t[2 * c + 1]) for c in range(3))
+
+    return ctx, planes(0), planes(1), where
+
+
+def _check_g2_cases(got, where):
+    """The real pairs' sums against the host's affine arithmetic."""
+    F2 = bn254.Fq2Ops()
+    idx = torch.tensor(sorted(where), device=got[0][0].device)
+    head = bn254.PointJ(*(tuple(t[:, idx].contiguous() for t in c) for c in got))
+    (x0, x1), (y0, y1) = (F2.to_int(c) for c in bn254.to_affine(F2, head))
+    for k, at in enumerate(sorted(where)):
+        want = bn254.h_ec_add(*where[at], bn254.HOST_FQ2) or ((0, 0), (0, 0))
+        assert ((int(x0[k]), int(x1[k])), (int(y0[k]), int(y1[k]))) == want, at
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, 28672])
+def test_point_add_g2_lanes_at_edges_match_plain_and_host(n):
+    """A pair of lanes or a warp cut by the batch's edge, the degenerate
+    cases at every place in a warp: bit for bit the plain version, and the
+    real pairs' sums the host's."""
+    dev = _cuda()
+    ctx, p, q, where = _g2_case_inputs(dev, n, 20 + n)
+    before = kernels.LAUNCHES["point_add_g2"]
+    got = kernels.point_add_g2(ctx, p, q)
+    assert kernels.LAUNCHES["point_add_g2"] == before + 1
+    for g, r in zip(_leaves(got), _leaves(kernels.point_add_g2_plain(ctx, p, q))):
+        assert torch.equal(g, r)
+    _check_g2_cases(got, where)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, 28672])
+@pytest.mark.parametrize("keep", [0, 1])
+def test_point_add_g2_lanes_alternating_mask_match_plain(n, keep):
+    """A mask set on every other point: neighbouring pairs of lanes take
+    opposite branches, and a passed point comes out limb for limb."""
+    dev = _cuda()
+    ctx, p, q, where = _g2_case_inputs(dev, n, 40 + n)
+    mask = (torch.arange(n, device=dev, dtype=torch.int32) % 2) * 3
+    got = kernels.point_add_g2(ctx, p, q, mask, keep)
+    for g, r in zip(_leaves(got), _leaves(kernels.point_add_g2_plain(ctx, p, q, mask, keep))):
+        assert torch.equal(g, r)
+    for g, k in zip(_leaves(got), _leaves((p, q)[keep])):
+        assert torch.equal(g[:, 1::2], k[:, 1::2])
+    _check_g2_cases(got, {at: pair for at, pair in where.items() if at % 2 == 0})
+
+
+POW_EDGE_EXPONENTS = (0, 1, 2, 3, (1 << kernels.POW_WINDOW) - 1, 1 << kernels.POW_WINDOW,
+                      (1 << kernels.POW_WINDOW) + 1, (1 << 255) + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modulus", [bn254.Q, bn254.R], ids=["fq", "fr"])
+@pytest.mark.parametrize("n", [1, 32, (1 << 16) + 3])
+def test_mont_pow_windows_match_plain(modulus, n):
+    """The sliding window on exponents at its edges, q - 2, q - 1 and random
+    ones: bit for bit the plain version, python's pow on a sample, and
+    windows of 4 and 5 bits alike (the chosen width and the other)."""
+    dev = _cuda()
+    rng = np.random.default_rng(30 + n)
+    ctx = bigint.mont_ctx(modulus)
+    vals = ([0, 1, modulus - 1] + _rand_ints(rng, max(n - 3, 0), modulus))[:n]
+    a = ctx.from_int(vals, dev)
+    sample = slice(0, 32)
+    for e in POW_EDGE_EXPONENTS + (modulus - 2, modulus - 1,
+                                   int.from_bytes(rng.bytes(32), "little"),
+                                   int.from_bytes(rng.bytes(32), "little") >> 3):
+        before = kernels.LAUNCHES["mont_pow"]
+        got = kernels.mont_pow(ctx, a, e)
+        assert kernels.LAUNCHES["mont_pow"] == before + 1
+        assert torch.equal(got, kernels.mont_pow_plain(ctx, a, e)), e
+        other = kernels.pow_schedule_struct(e, 9 - kernels.POW_WINDOW)
+        assert torch.equal(got, kernels._launch_pow(ctx, a, other)), e
+        want = [pow(v, e, modulus) for v in vals[sample]]
+        assert list(ctx.to_int(got[:, sample])) == want, e
 
 
 @pytest.mark.gpu

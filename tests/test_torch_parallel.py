@@ -8,7 +8,8 @@ driver's entry points are in tests/test_torch_dryrun.py.
 - `ntt_sharded` over 2, 4 and 8 shards against the JAX `ntt`, and the
   round trip through `intt_sharded`.
 - `msm_dist_int_mock` against numpy; `msm_dist_g1` on a handful of points
-  against the host's scalar multiplications; `msm.msm` likewise.
+  against the host's scalar multiplications; `msm.msm` likewise; the
+  shards' pairwise tree refusing a shard count that is not a power of two.
 The JAX package's shard_map paths are not run (tests/test_parallel.py does).
 Tolerance: none, exact integer and byte equality.
 """
@@ -105,6 +106,21 @@ def test_msm_dist_int_mock_equal_numpy(d):
     got = msm_dist.msm_dist_int_mock(cpu_mesh(d), torch.from_numpy(vals.astype(np.int64)),
                                      digits, c=4)
     assert got == int((vals * scalars).sum() % (1 << 32))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6])
+def test_allreduce_group_needs_a_power_of_two_shard_count(d):
+    """The pairwise tree over 3 or 6 shards raises, where the JAX package's
+    tree drops the odd shard's sums without a word; over 1, 2 or 4 it is
+    the group sum."""
+    vals = [torch.tensor([[7 * k + 1, 1 << 31]], dtype=torch.int64) for k in range(d)]
+    if d & (d - 1):
+        with pytest.raises(ValueError, match="power-of-two"):
+            msm_dist._allreduce_group(msm.IntGroup(), vals, CPU)
+        return
+    got = msm_dist._allreduce_group(msm.IntGroup(), vals, CPU)
+    want = [sum(7 * k + 1 for k in range(d)) & 0xFFFFFFFF, (d << 31) & 0xFFFFFFFF]
+    assert got.tolist() == [want]
 
 
 def test_msm_dist_g1_equal_host():
