@@ -44,6 +44,7 @@ import torch
 
 from ..ops import goldilocks as gl
 from ..ops import ntt as nttm
+from ..utils.profiling import span
 from . import fri, merkle
 from .transcript import Transcript
 
@@ -56,8 +57,8 @@ from .transcript import Transcript
 COMP_BLOCK = 1 << 19
 
 # Called with a stage's name when `prove` has finished it (trace LDE, Merkle
-# commit, composition, FRI, openings); a caller that times the stages sets it
-# and synchronises the device inside.
+# commit, composition, FRI, openings), at the end of the stage's span; a
+# caller that times the stages sets it and synchronises the device inside.
 STAGE_HOOK: Callable[[str], None] | None = None
 
 
@@ -386,41 +387,48 @@ def prove(air: Air, trace_rows: torch.Tensor, publics: List[int], boundaries: Li
     m = n * B
     dev = trace_rows.device
 
-    lde_cols = nttm.lde_columns(trace_rows.T, B, shift)  # (C, m)
-    stage("lde")
-    tree = merkle.commit_tree(lde_cols.T)  # rows (m, C), read through their strides
-    root = tree.root()
-    stage("merkle")
+    with span("air.lde"):
+        lde_cols = nttm.lde_columns(trace_rows.T, B, shift)  # (C, m)
+        stage("lde")
+    with span("air.merkle"):
+        tree = merkle.commit_tree(lde_cols.T)  # rows (m, C), read through their strides
+        root = tree.root()
+        stage("merkle")
 
-    transcript = Transcript(f"ezt-air/{air.name}")
-    transcript.absorb("public", [len(publics)] + [int(v) % gl.P for v in publics])
-    transcript.absorb("boundary", [v for b in boundaries for v in (b.col, b.row, b.value % gl.P)])
-    transcript.absorb("trace-root", root)
-    n_alphas = sum(c.arity for c in air.constraints) + len(boundaries)
-    alphas = transcript.challenges("alpha", n_alphas)
+    with span("air.transcript"):
+        transcript = Transcript(f"ezt-air/{air.name}")
+        transcript.absorb("public", [len(publics)] + [int(v) % gl.P for v in publics])
+        transcript.absorb("boundary",
+                          [v for b in boundaries for v in (b.col, b.row, b.value % gl.P)])
+        transcript.absorb("trace-root", root)
+        n_alphas = sum(c.arity for c in air.constraints) + len(boundaries)
+        alphas = transcript.challenges("alpha", n_alphas)
 
-    comp = _composition(air, lde_cols, alphas, boundaries, shift)
-    stage("composition")
-    fri_out = fri.fri_prove(comp, shift, transcript, air.fri_params(num_queries))
-    stage("fri")
+    with span("air.composition"):
+        comp = _composition(air, lde_cols, alphas, boundaries, shift)
+        stage("composition")
+    with span("air.fri"):
+        fri_out = fri.fri_prove(comp, shift, transcript, air.fri_params(num_queries))
+        stage("fri")
 
-    all_idx = []
-    for jj in fri_out.layer0_indices:
-        all_idx += [jj, (jj + B) % m, jj + m // 2, (jj + m // 2 + B) % m]
-    idx_t = torch.as_tensor(all_idx, dtype=torch.int64, device=dev)
-    row_vals = gl.to_int(lde_cols[:, idx_t].T)  # (4Q, C), one transfer
-    all_paths = tree.open_many(all_idx)
-    openings = []
-    for q in range(len(fri_out.layer0_indices)):
-        openings.append([
-            {
-                "index": int(all_idx[i]),
-                "row": [str(int(x)) for x in row_vals[i]],
-                "path": [[str(x) for x in p] for p in all_paths[i]],
-            }
-            for i in range(4 * q, 4 * q + 4)
-        ])
-    stage("openings")
+    with span("air.openings"):
+        all_idx = []
+        for jj in fri_out.layer0_indices:
+            all_idx += [jj, (jj + B) % m, jj + m // 2, (jj + m // 2 + B) % m]
+        idx_t = torch.as_tensor(all_idx, dtype=torch.int64, device=dev)
+        row_vals = gl.to_int(lde_cols[:, idx_t].T)  # (4Q, C), one transfer
+        all_paths = tree.open_many(all_idx)
+        openings = []
+        for q in range(len(fri_out.layer0_indices)):
+            openings.append([
+                {
+                    "index": int(all_idx[i]),
+                    "row": [str(int(x)) for x in row_vals[i]],
+                    "path": [[str(x) for x in p] for p in all_paths[i]],
+                }
+                for i in range(4 * q, 4 * q + 4)
+            ])
+        stage("openings")
 
     return {
         "version": 1,

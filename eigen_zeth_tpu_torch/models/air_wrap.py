@@ -31,6 +31,7 @@ import torch
 
 from ..ops import goldilocks as gl
 from ..ops import ntt as nttm
+from ..utils.profiling import span
 from . import fri as fri_m
 from . import merkle_fr
 from .air import Air, Boundary, HostAlg, _composition, stage
@@ -93,53 +94,59 @@ def _fri_prove_fr(evals: torch.Tensor, shift: int, transcript: TranscriptFr,
     cur = evals
     cur_shift = shift
     while cur.shape[-1] > params.terminal_size:
-        half = cur.shape[-1] // 2
-        u, v = cur[:half], cur[half:]
-        # leaf j = packed (u_j, v_j): one Fr element per leaf
-        tree = merkle_fr.commit_rows_gl(torch.stack([u, v], dim=1))
-        root = tree.root()
-        transcript.absorb("fri-root", [root])
-        beta = transcript.challenge_gl("fri-beta")
-        layers.append((tree, u, v))
-        roots.append(root)
-        cur = fri_m.fold_layer(cur, beta, cur_shift)
-        cur_shift = gl.h_mul(cur_shift, cur_shift)
+        with span("fri.layer", layer=len(layers)):
+            half = cur.shape[-1] // 2
+            u, v = cur[:half], cur[half:]
+            # leaf j = packed (u_j, v_j): one Fr element per leaf
+            tree = merkle_fr.commit_rows_gl(torch.stack([u, v], dim=1))
+            root = tree.root()
+            with span("fri.transcript"):
+                transcript.absorb("fri-root", [root])
+                beta = transcript.challenge_gl("fri-beta")
+            layers.append((tree, u, v))
+            roots.append(root)
+            cur = fri_m.fold_layer(cur, beta, cur_shift)
+            cur_shift = gl.h_mul(cur_shift, cur_shift)
 
-    final_evals = gl.to_int(cur)
-    tsize = len(final_evals)
-    coeffs_shifted = gl.to_int(nttm.intt(cur))
-    s_inv = gl.h_inv(cur_shift)
-    final_coeffs, si = [], 1
-    for c in coeffs_shifted:
-        final_coeffs.append(gl.h_mul(int(c), si))
-        si = gl.h_mul(si, s_inv)
-    keep = tsize // params.blowup
-    assert all(c == 0 for c in final_coeffs[keep:]), "terminal degree too high"
-    final_coeffs = final_coeffs[:keep]
-    transcript.absorb_packed_gl("fri-final", final_coeffs)
-    stage("fri")
+    with span("fri.terminal"):
+        final_evals = gl.to_int(cur)
+        tsize = len(final_evals)
+        coeffs_shifted = gl.to_int(nttm.intt(cur))
+        s_inv = gl.h_inv(cur_shift)
+        final_coeffs, si = [], 1
+        for c in coeffs_shifted:
+            final_coeffs.append(gl.h_mul(int(c), si))
+            si = gl.h_mul(si, s_inv)
+        keep = tsize // params.blowup
+        assert all(c == 0 for c in final_coeffs[keep:]), "terminal degree too high"
+        final_coeffs = final_coeffs[:keep]
+        transcript.absorb_packed_gl("fri-final", final_coeffs)
+        stage("fri")
 
-    grind_nonce = None
-    if params.grind_bits:
-        grind_nonce = transcript.grind(params.grind_bits, device=dev)
-    stage("grind")
+    with span("air.grind"):
+        grind_nonce = None
+        if params.grind_bits:
+            grind_nonce = transcript.grind(params.grind_bits, device=dev)
+        stage("grind")
 
-    indices = transcript.challenge_indices("fri-query", params.num_queries, m // 2)
-    js = np.asarray(indices, dtype=np.int64)
-    per_layer = []
-    for tree, u, v in layers:
-        jj = js % u.shape[0]
-        idx = torch.from_numpy(jj).to(dev)
-        uv = gl.to_int(torch.stack([u[idx], v[idx]], dim=1))  # one transfer
-        per_layer.append((uv, tree.open_many(jj.tolist())))
-        js = jj
-    queries = []
-    for q, idx in enumerate(indices):
-        layer_openings = [
-            {"u": str(int(uv[q, 0])), "v": str(int(uv[q, 1])), "path": [str(x) for x in paths[q]]}
-            for uv, paths in per_layer
-        ]
-        queries.append({"index": idx, "layers": layer_openings})
+    with span("fri.openings"):
+        indices = transcript.challenge_indices("fri-query", params.num_queries, m // 2)
+        js = np.asarray(indices, dtype=np.int64)
+        per_layer = []
+        for tree, u, v in layers:
+            jj = js % u.shape[0]
+            idx = torch.from_numpy(jj).to(dev)
+            uv = gl.to_int(torch.stack([u[idx], v[idx]], dim=1))  # one transfer
+            per_layer.append((uv, tree.open_many(jj.tolist())))
+            js = jj
+        queries = []
+        for q, idx in enumerate(indices):
+            layer_openings = [
+                {"u": str(int(uv[q, 0])), "v": str(int(uv[q, 1])),
+                 "path": [str(x) for x in paths[q]]}
+                for uv, paths in per_layer
+            ]
+            queries.append({"index": idx, "layers": layer_openings})
 
     proof = {
         "domain_size": m,
@@ -277,56 +284,62 @@ def prove_wrap(air: Air, trace_rows: torch.Tensor, publics: List[int], boundarie
     m = n * B
     dev = trace_rows.device
 
-    lde_cols = nttm.lde_columns(trace_rows.T, B, shift)  # (C, m)
-    stage("lde")
-    tree = merkle_fr.commit_rows_gl(lde_cols.T)  # rows (m, C), read through their strides
-    root = tree.root()
-    c_root = constants_root(air, shift, dev)
-    stage("merkle")
+    with span("air.lde"):
+        lde_cols = nttm.lde_columns(trace_rows.T, B, shift)  # (C, m)
+        stage("lde")
+    with span("air.merkle"):
+        tree = merkle_fr.commit_rows_gl(lde_cols.T)  # rows (m, C), read through their strides
+        root = tree.root()
+        c_root = constants_root(air, shift, dev)
+        stage("merkle")
 
-    t = TranscriptFr(f"ezt-air-wrap/{air.name}")
-    _absorb_instance(t, publics, boundaries, c_root, root)
-    alpha = t.challenge_gl("alpha")
-    alphas = alpha_powers(alpha, n_alphas_of(air, boundaries))
+    with span("air.transcript"):
+        t = TranscriptFr(f"ezt-air-wrap/{air.name}")
+        _absorb_instance(t, publics, boundaries, c_root, root)
+        alpha = t.challenge_gl("alpha")
+        alphas = alpha_powers(alpha, n_alphas_of(air, boundaries))
 
-    comp = _composition(air, lde_cols, alphas, boundaries, shift)
-    stage("composition")
+    with span("air.composition"):
+        comp = _composition(air, lde_cols, alphas, boundaries, shift)
+        stage("composition")
 
-    fri_proof, indices = _fri_prove_fr(comp, shift, t, air.fri_params(num_queries, grind_bits))
+    with span("air.fri"):  # FRI's layers, the grinding and FRI's openings
+        fri_proof, indices = _fri_prove_fr(comp, shift, t, air.fri_params(num_queries, grind_bits))
 
-    all_idx = []
-    for jj in indices:
-        all_idx += [jj, (jj + B) % m, jj + m // 2, (jj + m // 2 + B) % m]
-    idx_t = torch.as_tensor(all_idx, dtype=torch.int64, device=dev)
-    row_vals = gl.to_int(lde_cols[:, idx_t].T)  # (4Q, C), one transfer
-    all_paths = tree.open_many(all_idx)
-    openings = []
-    for q in range(len(indices)):
-        openings.append([
-            {
-                "index": int(all_idx[i]),
-                "row": [str(int(x)) for x in row_vals[i]],
-                "path": [str(x) for x in all_paths[i]],
-            }
-            for i in range(4 * q, 4 * q + 4)
-        ])
+    with span("air.openings"):
+        all_idx = []
+        for jj in indices:
+            all_idx += [jj, (jj + B) % m, jj + m // 2, (jj + m // 2 + B) % m]
+        idx_t = torch.as_tensor(all_idx, dtype=torch.int64, device=dev)
+        row_vals = gl.to_int(lde_cols[:, idx_t].T)  # (4Q, C), one transfer
+        all_paths = tree.open_many(all_idx)
+        openings = []
+        for q in range(len(indices)):
+            openings.append([
+                {
+                    "index": int(all_idx[i]),
+                    "row": [str(int(x)) for x in row_vals[i]],
+                    "path": [str(x) for x in all_paths[i]],
+                }
+                for i in range(4 * q, 4 * q + 4)
+            ])
 
-    # constants openings at jj and jj + m/2 (periodic values at x and -x)
-    c_tree = constants_tree(air, shift, dev)
-    c_idx = [i for jj in indices for i in (jj, jj + m // 2)]
-    c_vals = gl.to_int(constants_rows(air, shift, dev)[torch.as_tensor(c_idx, device=dev)])
-    c_paths = c_tree.open_many(c_idx)
-    const_openings = []
-    for q in range(len(indices)):
-        const_openings.append([
-            {
-                "index": int(c_idx[i]),
-                "row": [str(int(v)) for v in np.atleast_1d(c_vals[i])],
-                "path": [str(x) for x in c_paths[i]],
-            }
-            for i in (2 * q, 2 * q + 1)
-        ])
-    stage("openings")
+        # constants openings at jj and jj + m/2 (periodic values at x and -x)
+        c_tree = constants_tree(air, shift, dev)
+        c_idx = [i for jj in indices for i in (jj, jj + m // 2)]
+        c_vals = gl.to_int(constants_rows(air, shift, dev)[torch.as_tensor(c_idx, device=dev)])
+        c_paths = c_tree.open_many(c_idx)
+        const_openings = []
+        for q in range(len(indices)):
+            const_openings.append([
+                {
+                    "index": int(c_idx[i]),
+                    "row": [str(int(v)) for v in np.atleast_1d(c_vals[i])],
+                    "path": [str(x) for x in c_paths[i]],
+                }
+                for i in (2 * q, 2 * q + 1)
+            ])
+        stage("openings")
 
     return {
         "version": 1,

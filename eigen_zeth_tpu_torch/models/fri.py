@@ -23,6 +23,7 @@ import torch
 
 from ..ops import goldilocks as gl
 from ..ops import ntt as nttm
+from ..utils.profiling import span
 from . import merkle
 from .transcript import Transcript
 
@@ -91,62 +92,67 @@ def fri_prove_batched(evals: torch.Tensor, shift: int, transcripts: List[Transcr
     cur = evals
     cur_shift = shift
     while cur.shape[-1] > params.terminal_size:
-        half = cur.shape[-1] // 2
-        u, v = cur[:, :half], cur[:, half:]
-        levels = merkle.commit_leaves(torch.stack([u, v], dim=2))
-        roots = merkle.roots(levels)
-        betas = []
+        with span("fri.layer", layer=len(layers)):
+            half = cur.shape[-1] // 2
+            u, v = cur[:, :half], cur[:, half:]
+            levels = merkle.commit_leaves(torch.stack([u, v], dim=2))
+            roots = merkle.roots(levels)
+            betas = []
+            with span("fri.transcript"):
+                for k in range(K):
+                    root = [int(x) for x in roots[k]]
+                    transcripts[k].absorb("fri-root", root)
+                    roots_all[k].append(root)
+                    betas.append(transcripts[k].challenge("fri-beta"))
+            layers.append((levels, u, v))
+            cur = fold_layer(cur, gl.from_int(betas, dev)[:, None], cur_shift)
+            cur_shift = gl.h_mul(cur_shift, cur_shift)
+
+    with span("fri.terminal"):
+        tsize = cur.shape[-1]
+        coeffs_shifted = gl.to_int(nttm.intt(cur))
+        s_inv = gl.h_inv(cur_shift)
+        keep = tsize // params.blowup
+        finals, indices = [], []
         for k in range(K):
-            root = [int(x) for x in roots[k]]
-            transcripts[k].absorb("fri-root", root)
-            roots_all[k].append(root)
-            betas.append(transcripts[k].challenge("fri-beta"))
-        layers.append((levels, u, v))
-        cur = fold_layer(cur, gl.from_int(betas, dev)[:, None], cur_shift)
-        cur_shift = gl.h_mul(cur_shift, cur_shift)
+            final_coeffs, si = [], 1
+            for c in coeffs_shifted[k]:
+                final_coeffs.append(gl.h_mul(int(c), si))
+                si = gl.h_mul(si, s_inv)
+            assert all(c == 0 for c in final_coeffs[keep:]), "terminal degree too high"
+            final_coeffs = final_coeffs[:keep]
+            transcripts[k].absorb("fri-final", final_coeffs)
+            finals.append(final_coeffs)
+            indices.append(transcripts[k].challenge_indices("fri-query", params.num_queries,
+                                                            m // 2))
 
-    tsize = cur.shape[-1]
-    coeffs_shifted = gl.to_int(nttm.intt(cur))
-    s_inv = gl.h_inv(cur_shift)
-    keep = tsize // params.blowup
-    finals, indices = [], []
-    for k in range(K):
-        final_coeffs, si = [], 1
-        for c in coeffs_shifted[k]:
-            final_coeffs.append(gl.h_mul(int(c), si))
-            si = gl.h_mul(si, s_inv)
-        assert all(c == 0 for c in final_coeffs[keep:]), "terminal degree too high"
-        final_coeffs = final_coeffs[:keep]
-        transcripts[k].absorb("fri-final", final_coeffs)
-        finals.append(final_coeffs)
-        indices.append(transcripts[k].challenge_indices("fri-query", params.num_queries, m // 2))
-
-    # openings: per layer one gather + transfer of values and of paths
-    js = torch.as_tensor(indices, dtype=torch.int64, device=dev).reshape(K, -1)
-    opened = []
-    for levels, u, v in layers:
-        jj = js % u.shape[-1]
-        vals = gl.to_int(torch.stack([u.gather(1, jj), v.gather(1, jj)], dim=-1))
-        opened.append((vals, merkle.open_batched(levels, jj)))
-        js = jj
-    outs = []
-    for k in range(K):
-        queries = []
-        for q, idx in enumerate(indices[k]):
-            layer_openings = [
-                {"u": str(int(vals[k, q, 0])), "v": str(int(vals[k, q, 1])),
-                 "path": path_strs(paths[k, q])}
-                for vals, paths in opened
-            ]
-            queries.append({"index": idx, "layers": layer_openings})
-        proof = {
-            "domain_size": m,
-            "shift": str(shift),
-            "roots": [[str(x) for x in r] for r in roots_all[k]],
-            "final_coeffs": [str(c) for c in finals[k]],
-            "queries": queries,
-        }
-        outs.append(FriProverOutput(proof=proof, layer0_indices=indices[k]))
+    with span("fri.openings"):
+        # per layer one gather + transfer of values and of paths
+        js = torch.as_tensor(indices, dtype=torch.int64, device=dev).reshape(K, -1)
+        opened = []
+        for levels, u, v in layers:
+            jj = js % u.shape[-1]
+            vals = gl.to_int(torch.stack([u.gather(1, jj), v.gather(1, jj)], dim=-1))
+            opened.append((vals, merkle.open_batched(levels, jj)))
+            js = jj
+        outs = []
+        for k in range(K):
+            queries = []
+            for q, idx in enumerate(indices[k]):
+                layer_openings = [
+                    {"u": str(int(vals[k, q, 0])), "v": str(int(vals[k, q, 1])),
+                     "path": path_strs(paths[k, q])}
+                    for vals, paths in opened
+                ]
+                queries.append({"index": idx, "layers": layer_openings})
+            proof = {
+                "domain_size": m,
+                "shift": str(shift),
+                "roots": [[str(x) for x in r] for r in roots_all[k]],
+                "final_coeffs": [str(c) for c in finals[k]],
+                "queries": queries,
+            }
+            outs.append(FriProverOutput(proof=proof, layer0_indices=indices[k]))
     return outs
 
 

@@ -45,6 +45,7 @@ from ..ops.bn254 import (
     h_ec_mul,
     h_ec_mul_jac_f,
 )
+from ..utils.profiling import span
 
 G2_GEN = (G2_GEN_X, G2_GEN_Y)
 
@@ -774,7 +775,8 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: List[int], rng_seed: str = "ezt-g
     they run the host Pippenger.  Queries held as DevicePoints are
     multiplied where they lie."""
     assert len(witness) == r1cs.num_vars and witness[0] == 1
-    a_rows, b_rows, c_rows = _row_values(r1cs, witness)  # checks every constraint
+    with span("step4.witness"):  # the witness's row values
+        a_rows, b_rows, c_rows = _row_values(r1cs, witness)  # checks every constraint
     r_rand = _tau_from_seed(rng_seed, "r")
     s_rand = _tau_from_seed(rng_seed, "s")
     on_card = torch.device(device).type == "cuda"
@@ -814,10 +816,12 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: List[int], rng_seed: str = "ezt-g
         return run([p for p, _ in pairs], [s for _, s in pairs], device=device)
 
     def msm1(points, scalars):
-        return msm_any(points, scalars, False)
+        with span("step4.msm", g2=False):
+            return msm_any(points, scalars, False)
 
     def msm2(points, scalars):
-        return msm_any(points, scalars, True)
+        with span("step4.msm", g2=True):
+            return msm_any(points, scalars, True)
 
     priv = witness[pk.num_public + 1 :]
     # A = α + Σ wᵢ·Aᵢ(τ) + r·δ
@@ -829,11 +833,12 @@ def prove(pk: ProvingKey, r1cs: R1CS, witness: List[int], rng_seed: str = "ezt-g
     pi_b1 = h_ec_add(pk.beta1, msm1(pk.b1_query, witness))
     pi_b1 = h_ec_add(pi_b1, h_ec_mul(s_rand, pk.delta1))
     # C = Σ_priv wᵢ·Lᵢ + Σ h_k·[τ^k Z/δ] + s·A + r·B₁ - r·s·δ
-    if on_card:
-        h = _h_from_values_device(a_rows, b_rows, c_rows, pk.domain, device,
-                                  as_scalars=isinstance(pk.h_query, DevicePoints))
-    else:
-        h = _h_from_values(a_rows, b_rows, c_rows, pk.domain)
+    with span("step4.h"):
+        if on_card:
+            h = _h_from_values_device(a_rows, b_rows, c_rows, pk.domain, device,
+                                      as_scalars=isinstance(pk.h_query, DevicePoints))
+        else:
+            h = _h_from_values(a_rows, b_rows, c_rows, pk.domain)
     pi_c = msm1(pk.l_query, priv)
     pi_c = h_ec_add(pi_c, msm1(pk.h_query, h[: len(pk.h_query)]))
     pi_c = h_ec_add(pi_c, h_ec_mul(s_rand, pi_a))

@@ -60,6 +60,7 @@ import numpy as np
 
 from ..ops import goldilocks as gl
 from ..ops import poseidon
+from ..utils.profiling import span
 from . import air as air_m
 from . import air_wrap, stark
 from .poseidon_tags import chunk_gamma
@@ -1016,13 +1017,22 @@ def build_verifier_trace(child_proof: dict, q_c: int):
     Returns (air, trace, publics, boundaries), the trace an (n, C) numpy
     uint64 array on the host.  The function just transcribes — an INVALID
     child proof produces a constraint-violating trace, which air.prove
-    rejects (FRI terminal-degree gate)."""
+    rejects (FRI terminal-degree gate).  Its span "recursion.build" holds
+    "recursion.replay", "recursion.paths" (the trace's and the fold
+    layers' Merkle paths), "recursion.coeffs" (the coefficient stream) and
+    one "recursion.perm_rows" for each permutation slot filled."""
+    with span("recursion.build"):
+        return _transcribe(child_proof, q_c)
+
+
+def _transcribe(child_proof: dict, q_c: int):
     n_c = int(child_proof["n"])
     m_c = 4 * n_c
     header = child_header(child_proof)
     terminal = header_terminal(header)
     air, lay, sch, per = attestation_air(n_c, q_c, terminal)
-    alphas, betas, indices = replay_child(header, q_c)
+    with span("recursion.replay"):
+        alphas, betas, indices = replay_child(header, q_c)
     assert len(child_proof["fri"]["queries"]) == q_c
     shift_c = int(child_proof["shift"])
     gamma = int(child_proof["public"]["gamma"])
@@ -1081,50 +1091,52 @@ def build_verifier_trace(child_proof: dict, q_c: int):
     def fill_perm(slot: int, st0: np.ndarray) -> np.ndarray:
         """Run one permutation slot for all queries; fill state + aux
         columns; return the (Q, 12) output state."""
-        rows, aux, fin = _perm_rows_np(st0)
-        b = slot * SLOT
-        for i in range(W):
-            tr[:, b : b + SLOT, lay.state[i]] = rows[:, :, i]
-            tr[:, b : b + SLOT, lay.a2[i]] = aux[:, :, 0, i]
-            tr[:, b : b + SLOT, lay.a4[i]] = aux[:, :, 1, i]
-            tr[:, b : b + SLOT, lay.a6[i]] = aux[:, :, 2, i]
-        return fin
+        with span("recursion.perm_rows"):
+            rows, aux, fin = _perm_rows_np(st0)
+            b = slot * SLOT
+            for i in range(W):
+                tr[:, b : b + SLOT, lay.state[i]] = rows[:, :, i]
+                tr[:, b : b + SLOT, lay.a2[i]] = aux[:, :, 0, i]
+                tr[:, b : b + SLOT, lay.a4[i]] = aux[:, :, 1, i]
+                tr[:, b : b + SLOT, lay.a6[i]] = aux[:, :, 2, i]
+            return fin
 
     # --- Merkle paths (slots are query-parallel) ------------------------------
-    jj = idxs[:, 0]  # the pair index of each query
-    for p in range(4):
-        base_slot = p * (1 + sch.depth)
-        st0 = np.zeros((Q, W), dtype=np.uint64)
-        st0[:, 0], st0[:, 1] = la[:, p], ld[:, p]
-        st0[:, RATE] = 2
-        # iacc: 0 during the leaf slot
-        b0 = base_slot * SLOT
-        tr[:, b0 : b0 + SLOT, lay.iacc] = 0
-        dig = fill_perm(base_slot, st0)
-        run_idx = np.zeros(Q, dtype=np.int64)
-        for k in range(sch.depth):
-            slot = base_slot + 1 + k
-            load_row = slot * SLOT - 1
-            bit = (idxs[:, p] >> k) & 1
-            sib = paths[:, p, k]  # (Q, 4)
-            tr[:, load_row, lay.bit] = bit.astype(np.uint64)
-            for j in range(4):
-                tr[:, load_row, lay.sib[j]] = sib[:, j]
-            if p == 0:
-                wk = gl.h_pow(w_m, 1 << k)
-                tr[:, load_row, lay.bw] = mm(
-                    bit.astype(np.uint64), np.uint64(wk)
-                )
-            run_idx = run_idx + (bit.astype(np.int64) << k)
+    with span("recursion.paths"):
+        jj = idxs[:, 0]  # the pair index of each query
+        for p in range(4):
+            base_slot = p * (1 + sch.depth)
             st0 = np.zeros((Q, W), dtype=np.uint64)
-            bitu = bit.astype(np.uint64)
-            for j in range(4):
-                # left = bit ? sib : dig ; right = bit ? dig : sib
-                st0[:, j] = np.where(bit == 1, sib[:, j], dig[:, j])
-                st0[:, 4 + j] = np.where(bit == 1, dig[:, j], sib[:, j])
-            b = slot * SLOT
-            tr[:, b : b + SLOT, lay.iacc] = run_idx.astype(np.uint64)[:, None]
-            dig = fill_perm(slot, st0)
+            st0[:, 0], st0[:, 1] = la[:, p], ld[:, p]
+            st0[:, RATE] = 2
+            # iacc: 0 during the leaf slot
+            b0 = base_slot * SLOT
+            tr[:, b0 : b0 + SLOT, lay.iacc] = 0
+            dig = fill_perm(base_slot, st0)
+            run_idx = np.zeros(Q, dtype=np.int64)
+            for k in range(sch.depth):
+                slot = base_slot + 1 + k
+                load_row = slot * SLOT - 1
+                bit = (idxs[:, p] >> k) & 1
+                sib = paths[:, p, k]  # (Q, 4)
+                tr[:, load_row, lay.bit] = bit.astype(np.uint64)
+                for j in range(4):
+                    tr[:, load_row, lay.sib[j]] = sib[:, j]
+                if p == 0:
+                    wk = gl.h_pow(w_m, 1 << k)
+                    tr[:, load_row, lay.bw] = mm(
+                        bit.astype(np.uint64), np.uint64(wk)
+                    )
+                run_idx = run_idx + (bit.astype(np.int64) << k)
+                st0 = np.zeros((Q, W), dtype=np.uint64)
+                bitu = bit.astype(np.uint64)
+                for j in range(4):
+                    # left = bit ? sib : dig ; right = bit ? dig : sib
+                    st0[:, j] = np.where(bit == 1, sib[:, j], dig[:, j])
+                    st0[:, 4 + j] = np.where(bit == 1, dig[:, j], sib[:, j])
+                b = slot * SLOT
+                tr[:, b : b + SLOT, lay.iacc] = run_idx.astype(np.uint64)[:, None]
+                dig = fill_perm(slot, st0)
 
     # iacc holds the last path's final index from the idx slot to period
     # end (path 3 for zero-layer; filled again below for fold layers)
@@ -1151,79 +1163,80 @@ def build_verifier_trace(child_proof: dict, q_c: int):
 
     # --- fold-layer paths + registers (R >= 1) --------------------------------
     if lay.R:
-        qlayers = [child_proof["fri"]["queries"][q]["layers"] for q in range(Q)]
-        x_l = x_u.copy()  # x_0 = shift * w^jj
-        shift_l = shift_c % gl.P
-        ff_prev = None
-        inv2 = (gl.P + 1) // 2
-        for l in range(lay.R):
-            half_l = m_c >> (l + 1)
-            d_l = sch.fdepth[l]
-            jj_l = (jj & (half_l - 1)).astype(np.int64)
-            u_l = np.array(
-                [int(qlayers[q][l]["u"]) % gl.P for q in range(Q)], np.uint64
-            )
-            v_l = np.array(
-                [int(qlayers[q][l]["v"]) % gl.P for q in range(Q)], np.uint64
-            )
-            tb_l = ((jj_l >> (d_l - 1)) & 1).astype(np.uint64)
-            # fold value f_l = (u+v)/2 + beta*(u-v)/(2x)
-            x_inv = np.array(
-                [gl.h_inv(int(x)) for x in x_l], dtype=np.uint64
-            )
-            even = mm(am(u_l, v_l), np.uint64(inv2))
-            odd = mm(mm(mm(sm(u_l, v_l), np.uint64(inv2)), x_inv),
-                     np.uint64(betas[l] % gl.P))
-            f_l = am(even, odd)
-            y_l = mm(x_l, x_l)
-            tr[:, :, lay.fu[l]] = u_l[:, None]
-            tr[:, :, lay.fv[l]] = v_l[:, None]
-            tr[:, :, lay.fx[l]] = x_l[:, None]
-            tr[:, :, lay.fy[l]] = y_l[:, None]
-            tr[:, :, lay.ff[l]] = f_l[:, None]
-            tr[:, :, lay.ftb[l]] = tb_l[:, None]
-            tr[:, :, lay.fjx[l]] = jj_l.astype(np.uint64)[:, None]
-            # Merkle path slots (identical machinery to the trace paths)
-            base_slot = sch.fleaf_slots[l]
-            st0 = np.zeros((Q, W), dtype=np.uint64)
-            st0[:, 0], st0[:, 1] = u_l, v_l
-            st0[:, RATE] = 2
-            b0 = base_slot * SLOT
-            tr[:, b0 : b0 + SLOT, lay.iacc] = 0
-            dig = fill_perm(base_slot, st0)
-            run_idx = np.zeros(Q, dtype=np.int64)
-            for k in range(d_l):
-                slot = base_slot + 1 + k
-                load_row = slot * SLOT - 1
-                bit = (jj_l >> k) & 1
-                sib = np.array(
-                    [
-                        [int(x) % gl.P for x in qlayers[q][l]["path"][k]]
-                        for q in range(Q)
-                    ],
-                    dtype=np.uint64,
+        with span("recursion.paths"):
+            qlayers = [child_proof["fri"]["queries"][q]["layers"] for q in range(Q)]
+            x_l = x_u.copy()  # x_0 = shift * w^jj
+            shift_l = shift_c % gl.P
+            ff_prev = None
+            inv2 = (gl.P + 1) // 2
+            for l in range(lay.R):
+                half_l = m_c >> (l + 1)
+                d_l = sch.fdepth[l]
+                jj_l = (jj & (half_l - 1)).astype(np.int64)
+                u_l = np.array(
+                    [int(qlayers[q][l]["u"]) % gl.P for q in range(Q)], np.uint64
                 )
-                tr[:, load_row, lay.bit] = bit.astype(np.uint64)
-                for j in range(4):
-                    tr[:, load_row, lay.sib[j]] = sib[:, j]
-                run_idx = run_idx + (bit.astype(np.int64) << k)
+                v_l = np.array(
+                    [int(qlayers[q][l]["v"]) % gl.P for q in range(Q)], np.uint64
+                )
+                tb_l = ((jj_l >> (d_l - 1)) & 1).astype(np.uint64)
+                # fold value f_l = (u+v)/2 + beta*(u-v)/(2x)
+                x_inv = np.array(
+                    [gl.h_inv(int(x)) for x in x_l], dtype=np.uint64
+                )
+                even = mm(am(u_l, v_l), np.uint64(inv2))
+                odd = mm(mm(mm(sm(u_l, v_l), np.uint64(inv2)), x_inv),
+                         np.uint64(betas[l] % gl.P))
+                f_l = am(even, odd)
+                y_l = mm(x_l, x_l)
+                tr[:, :, lay.fu[l]] = u_l[:, None]
+                tr[:, :, lay.fv[l]] = v_l[:, None]
+                tr[:, :, lay.fx[l]] = x_l[:, None]
+                tr[:, :, lay.fy[l]] = y_l[:, None]
+                tr[:, :, lay.ff[l]] = f_l[:, None]
+                tr[:, :, lay.ftb[l]] = tb_l[:, None]
+                tr[:, :, lay.fjx[l]] = jj_l.astype(np.uint64)[:, None]
+                # Merkle path slots (identical machinery to the trace paths)
+                base_slot = sch.fleaf_slots[l]
                 st0 = np.zeros((Q, W), dtype=np.uint64)
-                for j in range(4):
-                    st0[:, j] = np.where(bit == 1, sib[:, j], dig[:, j])
-                    st0[:, 4 + j] = np.where(bit == 1, dig[:, j], sib[:, j])
-                b = slot * SLOT
-                tr[:, b : b + SLOT, lay.iacc] = run_idx.astype(np.uint64)[:, None]
-                dig = fill_perm(slot, st0)
-            # next layer's x: (-1)^tb * x^2
-            x_l = np.where(tb_l == 1, sm(np.zeros_like(y_l), y_l), y_l)
-            ff_prev = f_l
-        x_term = mm(
-            tr[:, 0, lay.fx[lay.R - 1]], tr[:, 0, lay.fx[lay.R - 1]]
-        )  # = fy[R-1]
-        # iacc holds the LAST fold path's index to period end (overrides
-        # the zero-layer fill below)
-        last_jj = tr[:, 0, lay.fjx[lay.R - 1]]
-        ff_last = ff_prev
+                st0[:, 0], st0[:, 1] = u_l, v_l
+                st0[:, RATE] = 2
+                b0 = base_slot * SLOT
+                tr[:, b0 : b0 + SLOT, lay.iacc] = 0
+                dig = fill_perm(base_slot, st0)
+                run_idx = np.zeros(Q, dtype=np.int64)
+                for k in range(d_l):
+                    slot = base_slot + 1 + k
+                    load_row = slot * SLOT - 1
+                    bit = (jj_l >> k) & 1
+                    sib = np.array(
+                        [
+                            [int(x) % gl.P for x in qlayers[q][l]["path"][k]]
+                            for q in range(Q)
+                        ],
+                        dtype=np.uint64,
+                    )
+                    tr[:, load_row, lay.bit] = bit.astype(np.uint64)
+                    for j in range(4):
+                        tr[:, load_row, lay.sib[j]] = sib[:, j]
+                    run_idx = run_idx + (bit.astype(np.int64) << k)
+                    st0 = np.zeros((Q, W), dtype=np.uint64)
+                    for j in range(4):
+                        st0[:, j] = np.where(bit == 1, sib[:, j], dig[:, j])
+                        st0[:, 4 + j] = np.where(bit == 1, dig[:, j], sib[:, j])
+                    b = slot * SLOT
+                    tr[:, b : b + SLOT, lay.iacc] = run_idx.astype(np.uint64)[:, None]
+                    dig = fill_perm(slot, st0)
+                # next layer's x: (-1)^tb * x^2
+                x_l = np.where(tb_l == 1, sm(np.zeros_like(y_l), y_l), y_l)
+                ff_prev = f_l
+            x_term = mm(
+                tr[:, 0, lay.fx[lay.R - 1]], tr[:, 0, lay.fx[lay.R - 1]]
+            )  # = fy[R-1]
+            # iacc holds the LAST fold path's index to period end (overrides
+            # the zero-layer fill below)
+            last_jj = tr[:, 0, lay.fjx[lay.R - 1]]
+            ff_last = ff_prev
 
     # --- idx chain slot (sequential across queries) ----------------------------
     chain_prev = np.zeros((Q, 4), dtype=np.uint64)
@@ -1251,43 +1264,44 @@ def build_verifier_trace(child_proof: dict, q_c: int):
     # zero-layer children: DUAL Horner at (x, -x) against the composition;
     # fold-layer children: ONE Horner at the terminal point x_term =
     # fy[R-1], checked against the last fold value
-    hu = np.zeros(Q, dtype=np.uint64)
-    hv = np.zeros(Q, dtype=np.uint64)
-    arg_u = x_term if lay.R else x_u
-    neg_x = sm(np.zeros_like(x_u), x_u)
-    st = np.zeros((Q, W), dtype=np.uint64)
-    st[:, RATE] = sch.n_stream
-    hsteps = min(RATE, sch.n_stream)
-    for b_i in range(sch.n_blocks):
-        slot = sch.stream0_slot + b_i
-        b = slot * SLOT
-        block = rev[b_i * RATE : b_i * RATE + hsteps]
-        # D columns hold the block over rows 0..hsteps-1
-        for j in range(hsteps):
-            tr[:, b : b + hsteps, lay.D[j]] = np.uint64(block[j])
-        # absorb into sponge lanes
-        st = st.copy()
-        for j in range(hsteps):
-            st[:, j] = am(st[:, j], np.full(Q, block[j], dtype=np.uint64))
-        # horner rows: acc at row b..b+hsteps (value BEFORE each step)
-        for r in range(hsteps):
-            tr[:, b + r, lay.hu] = hu
-            tr[:, b + r, lay.hv] = hv
-            hu = am(mm(hu, arg_u), np.uint64(block[r]))
-            hv = am(mm(hv, neg_x), np.uint64(block[r]))
-        # rows hsteps..31 hold the post-step values
-        tr[:, b + hsteps : b + SLOT, lay.hu] = hu[:, None]
-        tr[:, b + hsteps : b + SLOT, lay.hv] = hv[:, None]
-        st = fill_perm(slot, st)
-    # hu/hv hold through the pads to period end
-    pe = (sch.last_stream_slot + 1) * SLOT
-    tr[:, pe:, lay.hu] = hu[:, None]
-    tr[:, pe:, lay.hv] = hv[:, None]
-    # pads: state holds
-    for s_i in range(sch.last_stream_slot + 1, len(sch.slots)):
-        b = s_i * SLOT
-        for i in range(W):
-            tr[:, b : b + SLOT, lay.state[i]] = st[:, i : i + 1]
+    with span("recursion.coeffs"):
+        hu = np.zeros(Q, dtype=np.uint64)
+        hv = np.zeros(Q, dtype=np.uint64)
+        arg_u = x_term if lay.R else x_u
+        neg_x = sm(np.zeros_like(x_u), x_u)
+        st = np.zeros((Q, W), dtype=np.uint64)
+        st[:, RATE] = sch.n_stream
+        hsteps = min(RATE, sch.n_stream)
+        for b_i in range(sch.n_blocks):
+            slot = sch.stream0_slot + b_i
+            b = slot * SLOT
+            block = rev[b_i * RATE : b_i * RATE + hsteps]
+            # D columns hold the block over rows 0..hsteps-1
+            for j in range(hsteps):
+                tr[:, b : b + hsteps, lay.D[j]] = np.uint64(block[j])
+            # absorb into sponge lanes
+            st = st.copy()
+            for j in range(hsteps):
+                st[:, j] = am(st[:, j], np.full(Q, block[j], dtype=np.uint64))
+            # horner rows: acc at row b..b+hsteps (value BEFORE each step)
+            for r in range(hsteps):
+                tr[:, b + r, lay.hu] = hu
+                tr[:, b + r, lay.hv] = hv
+                hu = am(mm(hu, arg_u), np.uint64(block[r]))
+                hv = am(mm(hv, neg_x), np.uint64(block[r]))
+            # rows hsteps..31 hold the post-step values
+            tr[:, b + hsteps : b + SLOT, lay.hu] = hu[:, None]
+            tr[:, b + hsteps : b + SLOT, lay.hv] = hv[:, None]
+            st = fill_perm(slot, st)
+        # hu/hv hold through the pads to period end
+        pe = (sch.last_stream_slot + 1) * SLOT
+        tr[:, pe:, lay.hu] = hu[:, None]
+        tr[:, pe:, lay.hv] = hv[:, None]
+        # pads: state holds
+        for s_i in range(sch.last_stream_slot + 1, len(sch.slots)):
+            b = s_i * SLOT
+            for i in range(W):
+                tr[:, b : b + SLOT, lay.state[i]] = st[:, i : i + 1]
 
     # --- arithmetic scratch registers (period-constant) -------------------------
     sq = mm(x_u, x_u)

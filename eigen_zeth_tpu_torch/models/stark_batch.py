@@ -36,6 +36,7 @@ import torch
 
 from ..ops import goldilocks as gl
 from ..ops import ntt as nttm
+from ..utils.profiling import span
 from . import fri, merkle
 from .fri import path_strs
 from .poseidon_tags import chunk_gamma
@@ -103,67 +104,72 @@ def prove_chunks(datas: List[List[int]], ivs: List[int], params: StarkParams | N
     gamma = chunk_gamma()
     m = n * params.blowup
 
-    d_np = np.zeros((K, n), dtype=np.uint64)
-    for k, d in enumerate(datas):
-        d_np[k, : len(d)] = [int(x) % gl.P for x in d]
-    iv_host = [iv % gl.P for iv in ivs]
-    iv_t = gl.from_int(iv_host, device)
+    with span("stark.trace"):
+        d_np = np.zeros((K, n), dtype=np.uint64)
+        for k, d in enumerate(datas):
+            d_np[k, : len(d)] = [int(x) % gl.P for x in d]
+        iv_host = [iv % gl.P for iv in ivs]
+        iv_t = gl.from_int(iv_host, device)
+        A_lde, D_lde, rows, out_t = _trace_phase(
+            gl.from_int(d_np, device), iv_t, blowup=params.blowup, gamma=gamma,
+            shift=params.shift,
+        )
+        outs = [int(v) for v in gl.to_int(out_t)]
+    with span("stark.commit"):
+        levels = merkle.commit_leaves(rows)
+        trace_roots = merkle.roots(levels)
 
-    A_lde, D_lde, rows, out_t = _trace_phase(
-        gl.from_int(d_np, device), iv_t, blowup=params.blowup, gamma=gamma, shift=params.shift
-    )
-    outs = [int(v) for v in gl.to_int(out_t)]
-    levels = merkle.commit_leaves(rows)
-    trace_roots = merkle.roots(levels)
+    with span("stark.transcript"):
+        transcripts = []
+        alphas = np.zeros((K, 3), dtype=np.uint64)
+        for k in range(K):
+            t = Transcript("ezt-chunk-stark")
+            t.absorb("public", [n, iv_host[k], outs[k], gamma])
+            t.absorb("trace-root", [int(x) for x in trace_roots[k]])
+            alphas[k] = t.challenges("alpha", 3)
+            transcripts.append(t)
 
-    transcripts = []
-    alphas = np.zeros((K, 3), dtype=np.uint64)
-    for k in range(K):
-        t = Transcript("ezt-chunk-stark")
-        t.absorb("public", [n, iv_host[k], outs[k], gamma])
-        t.absorb("trace-root", [int(x) for x in trace_roots[k]])
-        alphas[k] = t.challenges("alpha", 3)
-        transcripts.append(t)
-
-    comp = _composition_phase(
-        A_lde, D_lde, gl.from_int(alphas, device), iv_t, out_t,
-        n=n, blowup=params.blowup, gamma=gamma, shift=params.shift,
-    )
+    with span("stark.composition"):
+        comp = _composition_phase(
+            A_lde, D_lde, gl.from_int(alphas, device), iv_t, out_t,
+            n=n, blowup=params.blowup, gamma=gamma, shift=params.shift,
+        )
     fri_outs = fri.fri_prove_batched(comp, params.shift, transcripts, params.fri_params())
 
-    # trace openings: rows at x, w·x, -x, -w·x for every layer-0 query
-    b = params.blowup
-    all_idx = [
-        [i for jj in fri_outs[k].layer0_indices
-         for i in (jj, (jj + b) % m, jj + m // 2, (jj + m // 2 + b) % m)]
-        for k in range(K)
-    ]
-    idx_t = torch.as_tensor(all_idx, dtype=torch.int64, device=device).reshape(K, -1)
-    row_vals = gl.to_int(torch.gather(rows, 1, idx_t[..., None].expand(idx_t.shape + (2,))))
-    paths = merkle.open_batched(levels, idx_t)
-    proofs = []
-    for k in range(K):
-        openings = []
-        for q in range(len(fri_outs[k].layer0_indices)):
-            openings.append([
-                {
-                    "index": all_idx[k][i],
-                    "row": [str(int(x)) for x in row_vals[k, i]],
-                    "path": path_strs(paths[k, i]),
-                }
-                for i in range(4 * q, 4 * q + 4)
-            ])
-        proofs.append({
-            "version": 1,
-            "n": n,
-            "blowup": params.blowup,
-            "shift": str(params.shift),
-            "public": {"iv": str(iv_host[k]), "out": str(outs[k]), "gamma": str(gamma)},
-            "trace_root": [str(x) for x in trace_roots[k]],
-            "fri": fri_outs[k].proof,
-            "trace_openings": openings,
-        })
-    return proofs
+    with span("stark.openings"):
+        # trace openings: rows at x, w·x, -x, -w·x for every layer-0 query
+        b = params.blowup
+        all_idx = [
+            [i for jj in fri_outs[k].layer0_indices
+             for i in (jj, (jj + b) % m, jj + m // 2, (jj + m // 2 + b) % m)]
+            for k in range(K)
+        ]
+        idx_t = torch.as_tensor(all_idx, dtype=torch.int64, device=device).reshape(K, -1)
+        row_vals = gl.to_int(torch.gather(rows, 1, idx_t[..., None].expand(idx_t.shape + (2,))))
+        paths = merkle.open_batched(levels, idx_t)
+        proofs = []
+        for k in range(K):
+            openings = []
+            for q in range(len(fri_outs[k].layer0_indices)):
+                openings.append([
+                    {
+                        "index": all_idx[k][i],
+                        "row": [str(int(x)) for x in row_vals[k, i]],
+                        "path": path_strs(paths[k, i]),
+                    }
+                    for i in range(4 * q, 4 * q + 4)
+                ])
+            proofs.append({
+                "version": 1,
+                "n": n,
+                "blowup": params.blowup,
+                "shift": str(params.shift),
+                "public": {"iv": str(iv_host[k]), "out": str(outs[k]), "gamma": str(gamma)},
+                "trace_root": [str(x) for x in trace_roots[k]],
+                "fri": fri_outs[k].proof,
+                "trace_openings": openings,
+            })
+        return proofs
 
 
 def _prove_over_mesh(datas, ivs, params: StarkParams, n: int, mesh) -> List[dict]:

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 P = 0xFFFFFFFF00000001  # 2^64 - 2^32 + 1
 TWO_ADICITY = 32
 MULTIPLICATIVE_GENERATOR = 7
@@ -50,8 +52,10 @@ def from_int(values, device) -> torch.Tensor:
 
 
 def to_int(x: torch.Tensor) -> np.ndarray:
-    """int64 tensor -> numpy uint64 (host)."""
-    return np.ascontiguousarray(x.detach().cpu().numpy()).view(np.uint64)
+    """int64 tensor -> numpy uint64 (host); the prover's reads of the card
+    go through here, each a "device.read" span."""
+    with profiling.device_read(x):
+        return np.ascontiguousarray(x.detach().cpu().numpy()).view(np.uint64)
 
 
 def full(shape, value: int, device) -> torch.Tensor:

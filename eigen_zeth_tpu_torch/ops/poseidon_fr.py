@@ -33,6 +33,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import bn254
 from .bigint import L
 
@@ -290,7 +291,8 @@ def words_from_ints(values, device) -> torch.Tensor:
 
 def ints_from_words(words: torch.Tensor) -> list:
     """(n, 4) int64 words -> a list of n python ints (one transfer)."""
-    host = np.ascontiguousarray(words.detach().reshape(-1, WORDS).cpu().numpy().astype("<i8"))
+    with profiling.device_read(words):
+        host = np.ascontiguousarray(words.detach().reshape(-1, WORDS).cpu().numpy().astype("<i8"))
     buf = host.tobytes()
     step = 8 * WORDS
     return [int.from_bytes(buf[i : i + step], "little") for i in range(0, len(buf), step)]

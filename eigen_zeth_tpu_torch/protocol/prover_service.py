@@ -46,6 +46,7 @@ roots.  `SyntheticExecutor` is the hermetic stand-in of the tests.
 from __future__ import annotations
 
 import base64
+import contextlib
 import functools
 import json
 import os
@@ -56,8 +57,8 @@ import torch
 
 from ..models import crs as crs_mod
 from ..models import groth16, recursion, stark, stark_batch, wrap_circuit
-from ..ops import keccak, poseidon
-from ..utils import rlp
+from ..ops import keccak, kernels, poseidon
+from ..utils import profiling, rlp
 from . import vectors
 from .messages import (
     ChunkProof,
@@ -172,6 +173,23 @@ def _wrap_crs(wrap: str, seed: str, device: torch.device):
     return r1cs, pk, vk
 
 
+@contextlib.contextmanager
+def _step_span(name: str, request: str):
+    """The span of one protocol step, its request id on it.  Traced, its
+    attrs count the step's blocking reads of the card (`device_reads`,
+    `read_bytes`, from its "device.read" spans) and its launches of the
+    hand-written kernels (`hand_launches`: the change in `kernels.LAUNCHES`,
+    by kernel)."""
+    with profiling.span(name, request=request, device_reads=0, read_bytes=0) as sp:
+        before = None if sp is None else dict(kernels.LAUNCHES)
+        try:
+            yield
+        finally:
+            if sp is not None:
+                sp.attrs["hand_launches"] = {
+                    k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+
+
 class BatchProver:
     """The in-process prover engine on an explicit torch device.
 
@@ -275,61 +293,65 @@ class BatchProver:
 
     def gen_batch_chunks(self, batch_id: str, block_numbers: List[int], chain_id: int,
                          program_name: str) -> GenBatchChunksResult:
-        try:
-            ex = self.executor.execute(block_numbers, chain_id)
-            elems = bytes_to_field_elements(ex.batch_data)
-            return GenBatchChunksResult(
-                batch_id=batch_id,
-                task_id=make_task_id(block_numbers[0]),
-                result_code=ProofResultCode.COMPLETED_OK,
-                chunk_count=max(1, -(-len(elems) // self.chunk_elems)),
-                batch_data=base64.b64encode(ex.batch_data).decode(),
-                pre_state_root=ex.pre_state_root,
-                post_state_root=ex.post_state_root,
-            )
-        except Exception as e:  # the reference's COMPLETED_ERROR semantics
-            return GenBatchChunksResult(
-                batch_id=batch_id, task_id=make_task_id(block_numbers[0] if block_numbers else 0),
-                result_code=ProofResultCode.COMPLETED_ERROR, chunk_count=0, batch_data="",
-                pre_state_root=b"\x00" * 32, post_state_root=b"\x00" * 32,
-                error_message=str(e),
-            )
+        with _step_span("step1", batch_id):
+            try:
+                ex = self.executor.execute(block_numbers, chain_id)
+                elems = bytes_to_field_elements(ex.batch_data)
+                return GenBatchChunksResult(
+                    batch_id=batch_id,
+                    task_id=make_task_id(block_numbers[0]),
+                    result_code=ProofResultCode.COMPLETED_OK,
+                    chunk_count=max(1, -(-len(elems) // self.chunk_elems)),
+                    batch_data=base64.b64encode(ex.batch_data).decode(),
+                    pre_state_root=ex.pre_state_root,
+                    post_state_root=ex.post_state_root,
+                )
+            except Exception as e:  # the reference's COMPLETED_ERROR semantics
+                return GenBatchChunksResult(
+                    batch_id=batch_id, task_id=make_task_id(block_numbers[0] if block_numbers else 0),
+                    result_code=ProofResultCode.COMPLETED_ERROR, chunk_count=0, batch_data="",
+                    pre_state_root=b"\x00" * 32, post_state_root=b"\x00" * 32,
+                    error_message=str(e),
+                )
 
     # -- step 2 --------------------------------------------------------------
 
     def gen_chunk_proof(self, batch_id: str, task_id: str, chunk_count: int, chain_id: int,
                         program_name: str, batch_data: str) -> GenChunkProofResult:
-        try:
-            elems = bytes_to_field_elements(base64.b64decode(batch_data))
-            chunks = [
-                elems[i * self.chunk_elems : (i + 1) * self.chunk_elems]
-                for i in range(chunk_count)
-            ]
-            ivs = [
-                poseidon.hash_elements_host([chain_id, int(task_id), i])[0]
-                for i in range(chunk_count)
-            ]
-            starks = stark_batch.prove_chunks(
-                chunks, ivs, self.stark_params, n=self.chunk_trace_rows, device=self.device,
-                mesh=self.mesh,
-            )
-            proofs = [
-                ChunkProof(
-                    chunk_id=i,
-                    proof_key=f"{task_id}/{i}",
-                    proof=json.dumps({"type": "chunk", "stark": proof}),
+        with _step_span("step2", task_id):
+            try:
+                elems = bytes_to_field_elements(base64.b64decode(batch_data))
+                chunks = [
+                    elems[i * self.chunk_elems : (i + 1) * self.chunk_elems]
+                    for i in range(chunk_count)
+                ]
+                with profiling.span("step2.ivs"):
+                    ivs = [
+                        poseidon.hash_elements_host([chain_id, int(task_id), i])[0]
+                        for i in range(chunk_count)
+                    ]
+                starks = stark_batch.prove_chunks(
+                    chunks, ivs, self.stark_params, n=self.chunk_trace_rows, device=self.device,
+                    mesh=self.mesh,
                 )
-                for i, proof in enumerate(starks)
-            ]
-            return GenChunkProofResult(
-                batch_id=batch_id, task_id=task_id,
-                result_code=ProofResultCode.COMPLETED_OK, chunk_proofs=proofs,
-            )
-        except Exception as e:
-            return GenChunkProofResult(
-                batch_id=batch_id, task_id=task_id,
-                result_code=ProofResultCode.COMPLETED_ERROR, error_message=str(e),
-            )
+                with profiling.span("step2.json"):
+                    proofs = [
+                        ChunkProof(
+                            chunk_id=i,
+                            proof_key=f"{task_id}/{i}",
+                            proof=json.dumps({"type": "chunk", "stark": proof}),
+                        )
+                        for i, proof in enumerate(starks)
+                    ]
+                return GenChunkProofResult(
+                    batch_id=batch_id, task_id=task_id,
+                    result_code=ProofResultCode.COMPLETED_OK, chunk_proofs=proofs,
+                )
+            except Exception as e:
+                return GenChunkProofResult(
+                    batch_id=batch_id, task_id=task_id,
+                    result_code=ProofResultCode.COMPLETED_ERROR, error_message=str(e),
+                )
 
     # -- step 3 --------------------------------------------------------------
 
@@ -344,36 +366,37 @@ class BatchProver:
         is also the aggregator's validity check, and nobody downstream
         verifies the chunk proof again.  Any other child, and every child
         with recursion off, is verified on the host."""
-        try:
-            kids, digests = [], []
-            for raw in (recursive_proof_1, recursive_proof_2):
-                node = json.loads(raw)
-                if self.recursion and node.get("type") == "chunk":
-                    if self.wrap == "stark":
-                        node = recursion.attest_chunk_wrap(
-                            node["stark"], num_queries_wrap=self.wrap_queries,
-                            grind_bits=self.wrap_grind_bits, ext_blowup=self.wrap_blowup,
-                            device=self.device,
-                        )
+        with _step_span("step3", batch_id):
+            try:
+                kids, digests = [], []
+                for raw in (recursive_proof_1, recursive_proof_2):
+                    node = json.loads(raw)
+                    if self.recursion and node.get("type") == "chunk":
+                        if self.wrap == "stark":
+                            node = recursion.attest_chunk_wrap(
+                                node["stark"], num_queries_wrap=self.wrap_queries,
+                                grind_bits=self.wrap_grind_bits, ext_blowup=self.wrap_blowup,
+                                device=self.device,
+                            )
+                        else:
+                            node = recursion.attest_chunk(
+                                node["stark"], num_queries_agg=self.agg_queries, device=self.device
+                            )
+                        digests.append(chunk_digest(node["header"]))
                     else:
-                        node = recursion.attest_chunk(
-                            node["stark"], num_queries_agg=self.agg_queries, device=self.device
-                        )
-                    digests.append(chunk_digest(node["header"]))
-                else:
-                    digests.append(self._validate(node))
-                kids.append(node)
-            digest = poseidon.hash_two_host(*digests)
-            agg = {"type": "aggregated", "digest": [str(x) for x in digest], "children": kids}
-            return GenAggregatedProofResult(
-                batch_id=batch_id, result_code=ProofResultCode.COMPLETED_OK,
-                result_string=json.dumps(agg),
-            )
-        except Exception as e:
-            return GenAggregatedProofResult(
-                batch_id=batch_id, result_code=ProofResultCode.COMPLETED_ERROR,
-                error_message=str(e),
-            )
+                        digests.append(self._validate(node))
+                    kids.append(node)
+                digest = poseidon.hash_two_host(*digests)
+                agg = {"type": "aggregated", "digest": [str(x) for x in digest], "children": kids}
+                return GenAggregatedProofResult(
+                    batch_id=batch_id, result_code=ProofResultCode.COMPLETED_OK,
+                    result_string=json.dumps(agg),
+                )
+            except Exception as e:
+                return GenAggregatedProofResult(
+                    batch_id=batch_id, result_code=ProofResultCode.COMPLETED_ERROR,
+                    error_message=str(e),
+                )
 
     def _validate(self, node: dict) -> List[int]:
         """Verify a chunk, attested or aggregated proof; return its digest,
@@ -416,26 +439,27 @@ class BatchProver:
 
     def gen_final_proof(self, batch_id: str, recursive_proof: str, curve_name: str,
                         aggregator_addr: str) -> GenFinalProofResult:
-        try:
-            if curve_name.upper() not in ("BN128", "BN254"):
-                raise ValueError(f"unsupported curve {curve_name!r}")
-            if debug_proof_enabled():
-                final = FinalProof(
-                    proof=json.dumps(vectors.reference_proof()),
-                    public_input=json.dumps(vectors.reference_public_input()),
+        with _step_span("step4", batch_id):
+            try:
+                if curve_name.upper() not in ("BN128", "BN254"):
+                    raise ValueError(f"unsupported curve {curve_name!r}")
+                if debug_proof_enabled():
+                    final = FinalProof(
+                        proof=json.dumps(vectors.reference_proof()),
+                        public_input=json.dumps(vectors.reference_public_input()),
+                    )
+                elif self.wrap == "stark":
+                    final = self._gen_final_proof_stark(recursive_proof, aggregator_addr)
+                else:
+                    final = self._gen_final_proof_digest(recursive_proof, aggregator_addr)
+                return GenFinalProofResult(
+                    batch_id=batch_id, result_code=ProofResultCode.COMPLETED_OK, final_proof=final
                 )
-            elif self.wrap == "stark":
-                final = self._gen_final_proof_stark(recursive_proof, aggregator_addr)
-            else:
-                final = self._gen_final_proof_digest(recursive_proof, aggregator_addr)
-            return GenFinalProofResult(
-                batch_id=batch_id, result_code=ProofResultCode.COMPLETED_OK, final_proof=final
-            )
-        except Exception as e:
-            return GenFinalProofResult(
-                batch_id=batch_id, result_code=ProofResultCode.COMPLETED_ERROR,
-                error_message=str(e),
-            )
+            except Exception as e:
+                return GenFinalProofResult(
+                    batch_id=batch_id, result_code=ProofResultCode.COMPLETED_ERROR,
+                    error_message=str(e),
+                )
 
     def _gen_final_proof_digest(self, recursive_proof: str, aggregator_addr: str) -> FinalProof:
         """The mimc / linear wrap: validate, then bind the digest and the
@@ -445,10 +469,11 @@ class BatchProver:
             digest + bytes_to_field_elements(aggregator_addr.encode())
         )
         r1cs, pk, vk = self._groth16_crs()
-        if self.wrap == "mimc":
-            witness, pub = groth16.mimc_wrap_witness(bound)
-        else:
-            witness, pub = groth16.wrap_witness(bound)
+        with profiling.span("step4.witness"):
+            if self.wrap == "mimc":
+                witness, pub = groth16.mimc_wrap_witness(bound)
+            else:
+                witness, pub = groth16.wrap_witness(bound)
         proof = groth16.prove(pk, r1cs, witness, device=self.device)
         if not groth16.verify(vk, proof, [pub]):
             raise RuntimeError("Groth16 self-check failed")
@@ -485,8 +510,9 @@ class BatchProver:
             )
         while len(entries) < self.max_wrap_leaves:
             entries.append(self._padding_entry())
-        r1cs, witness, pub = wrap_circuit.build_final_circuit(
-            entries, aggregator_addr, device=self.device)
+        with profiling.span("step4.circuit"):
+            r1cs, witness, pub = wrap_circuit.build_final_circuit(
+                entries, aggregator_addr, device=self.device)
         pk, vk = self._wrap_stark_crs(aggregator_addr)
         proof = groth16.prove(pk, r1cs, witness, device=self.device)
         if not groth16.verify(vk, proof, [pub]):

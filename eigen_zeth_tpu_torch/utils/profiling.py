@@ -1,5 +1,6 @@
-"""Profiling / tracing hooks, counters, timers and the prover's health
-block — port of eigen_zeth_tpu/utils/profiling.py.
+"""Profiling and tracing: the profiler hook, the span tracer, the node's
+counters and the prover's health block — port of
+eigen_zeth_tpu/utils/profiling.py, with the span tracer the port's own.
 
 `profile_trace` is the JAX package's profiler hook on `torch.profiler`: a
 Chrome trace (viewable in Perfetto or chrome://tracing) of the host and,
@@ -9,8 +10,20 @@ Usage:
     with profile_trace("/tmp/ezt-trace") as path:
         prover.gen_chunk_proof(...)
     # path: the trace file, written when the block ends
-or set EZT_PROFILE_DIR to trace without naming a directory.  `Metrics`,
-`METRICS` and `ProverTelemetry` are copies of the JAX package's.
+or set EZT_PROFILE_DIR to trace without naming a directory.
+
+The span tracer records the prover's phases in memory: `span(name,
+**attrs)` around a phase, `enable()` to record, `disable()` to stop and take
+the spans recorded.  It records while enabled and while a `torch.profiler`
+session runs in the process (as torch's `record_function` does), so a
+profiled window holds the program's spans without a call; while nothing
+records, a span costs two flag tests and returns a shared no-op.  A span's
+times are the host's, on `time.time_ns()`, the clock torch.profiler's
+events are converted to, so a device gap falls inside the span the host
+was in; no span synchronises the card.
+
+`METRICS` counts the node's events for `/metrics`; `ProverTelemetry` is
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,6 +33,9 @@ import os
 import threading
 import time
 import uuid
+from dataclasses import dataclass, field
+
+from torch.autograd import profiler as _torch_profiler
 
 
 @contextlib.contextmanager
@@ -47,34 +63,106 @@ def profile_trace(log_dir: str | None = None):
     prof.export_chrome_trace(path)
 
 
+_ON = False  # enable() / disable()
+_SPANS: list = []  # finished spans, in the order they ended
+_OPEN = threading.local()  # .stack: this thread's open spans, innermost last
+_OFF = contextlib.nullcontext()  # what `span` returns while nothing records
+
+
+@dataclass(eq=False)
+class Span:
+    """One phase on the host: `name`, its interval on `time.time_ns()`,
+    the enclosing span (`parent`), the protocol's request id (`request`:
+    the task id in step 2, the batch id in steps 1, 3 and 4; a child
+    inherits its parent's) and `attrs`."""
+
+    name: str
+    start_ns: int = 0
+    end_ns: int = 0
+    parent: Span | None = field(default=None, repr=False)
+    request: str | None = None
+    attrs: dict = field(default_factory=dict)
+
+    def __enter__(self) -> Span:
+        stack = _stack()
+        if stack:
+            self.parent = stack[-1]
+            if self.request is None:
+                self.request = self.parent.request
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.time_ns()
+        _stack().pop()
+        _SPANS.append(self)
+
+
+class _Read(Span):
+    """A blocking device-to-host read: the host waits on the card.  Its
+    bytes add to `device_reads` and `read_bytes` of every enclosing span
+    that holds them (the prover service's step spans)."""
+
+    def __exit__(self, *exc) -> None:
+        super().__exit__(*exc)
+        p = self.parent
+        while p is not None:
+            if "device_reads" in p.attrs:
+                p.attrs["device_reads"] += 1
+                p.attrs["read_bytes"] += self.attrs["bytes"]
+            p = p.parent
+
+
+def _stack() -> list:
+    try:
+        return _OPEN.stack
+    except AttributeError:
+        _OPEN.stack = []
+        return _OPEN.stack
+
+
+def span(name: str, request: str | None = None, **attrs):
+    """A context that records the span `name` around its block, or, while
+    nothing records, a shared no-op; `as` gives the Span or None."""
+    if not (_ON or _torch_profiler._is_profiler_enabled):
+        return _OFF
+    return Span(name, request=request, attrs=attrs)
+
+
+def device_read(t):
+    """The span "device.read" around a blocking read of tensor `t` to the
+    host, with attr `bytes`."""
+    if not (_ON or _torch_profiler._is_profiler_enabled):
+        return _OFF
+    return _Read("device.read", attrs={"bytes": t.nbytes})
+
+
+def enable() -> None:
+    """Record spans from here on."""
+    global _ON
+    _ON = True
+
+
+def disable() -> list:
+    """Stop recording (a running torch.profiler still records); return the
+    spans recorded since the last call, in the order they ended, and
+    forget them."""
+    global _ON, _SPANS
+    _ON = False
+    out, _SPANS = _SPANS, []
+    return out
+
+
 class Metrics:
-    """Process-local counters/timers (the prometheus-socket analog of the
+    """Process-local counters (the prometheus-socket analog of the
     reference's --metrics flag, src/commands/reth.rs:48-49)."""
 
     def __init__(self):
         self.counters: dict[str, int] = {}
-        self.timings: dict[str, list[float]] = {}
 
     def inc(self, name: str, by: int = 1):
         self.counters[name] = self.counters.get(name, 0) + by
-
-    @contextlib.contextmanager
-    def timed(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.timings.setdefault(name, []).append(time.time() - t0)
-
-    def report(self) -> dict:
-        return {
-            "counters": dict(self.counters),
-            "timings": {
-                k: {"count": len(v), "total_s": sum(v), "mean_s": sum(v) / len(v)}
-                for k, v in self.timings.items()
-                if v
-            },
-        }
 
     def prometheus_text(self, prefix: str = "ezt") -> str:
         """Prometheus exposition format — the /metrics scrape surface (the
@@ -85,14 +173,6 @@ class Metrics:
             m = f"{prefix}_{name}".replace(".", "_").replace("-", "_")
             lines.append(f"# TYPE {m} counter")
             lines.append(f"{m} {self.counters[name]}")
-        for name in sorted(self.timings):
-            v = self.timings[name]
-            if not v:
-                continue
-            m = f"{prefix}_{name}".replace(".", "_").replace("-", "_")
-            lines.append(f"# TYPE {m}_seconds summary")
-            lines.append(f"{m}_seconds_count {len(v)}")
-            lines.append(f"{m}_seconds_sum {sum(v):.6f}")
         return "\n".join(lines) + "\n"
 
 
@@ -116,7 +196,6 @@ class ProverTelemetry:
         self.current_start = 0
         self.last_id = ""
         self.last_end = 0
-        self.metrics = Metrics()
 
     # -- request lifecycle ---------------------------------------------------
 
