@@ -21,7 +21,10 @@ the entry points a user calls, and checks every stage:
      them over, column-major, and over FRI's 2^20 pairs, a Merkle level of
      2^20 strided digest pairs, 2^18 bare permutations with states aimed at
      the lazy field core's bounds, a whole 2^21-leaf tree in one launch and
-     9 batched trees of 2^14 leaves; kernel F, Poseidon2 over BN254 Fr,
+     9 batched trees of 2^14 leaves, and its verifier-rows entry, which
+     fills every Poseidon2 slot of the attestation's trace (32 queries, 147
+     slots, 8 fold paths), against the plain fill on the host with plan
+     words at and above p; kernel F, Poseidon2 over BN254 Fr,
      through its three entry points: the grind search's 2^14 states with
      edge lanes, the leaf sponge over the wrap attestation's 2^23 rows of
      216 columns, column-major, and its whole 2^23-leaf tree in one launch),
@@ -61,7 +64,7 @@ the entry points a user calls, and checks every stage:
      with recursion.verify_attestation under the pinned shape, the
      aggregated digest, the final proof with groth16.verify, and that
      kernel E was launched in steps 2 and 3, at most 60 times an
-     attestation; step 2 runs its 2 chunks over a 2-way chunk axis (logical
+     attestation, its verifier-rows entry once an attestation; step 2 runs its 2 chunks over a 2-way chunk axis (logical
      shards over the cards) and must equal a serial step 2 byte for byte
  10. the node's default, sound final wrap at the node's configuration, as
      scripts/launch-devnet-torch.sh deploys it, in one process: the port's
@@ -180,6 +183,7 @@ E_PERM_BATCH = 1 << 18
 E_EDGE = 256  # states of edge lanes among them
 E_CHUNK_LEAVES = 1 << 14  # a chunk STARK's leaves: 4,096 rows at blowup 4
 E_ATTESTATION_MOST = 60  # kernel E launches one attestation may take
+ROWS_QUERIES = 32  # the child's queries: the periods of the attestation's trace
 CHAIN_ID = 12345
 
 # The card's peak rates for the bounds (NVIDIA H100 SXM data sheet): device
@@ -563,6 +567,15 @@ def require_launches(path: str, launches: dict, names) -> None:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
 
 
+def require_rows_once(path: str, launches: dict, attestations: int) -> None:
+    """Step 3 filled each attestation's Poseidon2 rows with one launch of
+    kernel E's verifier-rows entry."""
+    if launches["poseidon2_rows"] != attestations:
+        raise AssertionError(f"{launches['poseidon2_rows']} launches of poseidon2_rows in step 3 "
+                             f"of the {path} path, expected one for each of {attestations} "
+                             f"attestations")
+
+
 def _check(result) -> None:
     if result.result_code != ProofResultCode.COMPLETED_OK:
         raise AssertionError(f"{type(result).__name__}: {result.error_message}")
@@ -786,6 +799,7 @@ def phase_kernels(device) -> dict:
         f"its plain version bare and under a mixed mask, the degenerate cases in the last "
         f"warp's tail")
     results["poseidon2"] = poseidon2
+    results["poseidon2_rows"] = _phase_verifier_rows_kernel(device, rng)
     results["poseidon_fr"] = _phase_poseidon_fr_kernel(device, rng)
     results["keccak256"] = _phase_keccak_kernel(device, rng)
     return results
@@ -1026,6 +1040,80 @@ def _phase_poseidon_kernel(device, rng) -> dict:
         "device_probed_bound_by": main["probed_bound_by"],
         "entries": entries,
     }
+
+
+def verifier_rows_bound(slots: int, queries: int, mads_per_s: float = INT32_MADS_PER_S) -> dict:
+    """The least time the card could take for one fill of the verifier
+    trace's Poseidon2 rows: the 48 columns of a slot's 32 rows written once
+    for every slot and query, against one permutation for each."""
+    states = slots * queries
+    by_bytes = states * 32 * kernels.ROWS_COLS * 8 / HBM_BYTES_PER_S * 1e3
+    by_ops = states * MADS_PER_PERM / mads_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _phase_verifier_rows_kernel(device, rng) -> dict:
+    """Kernel E's verifier-rows entry against its plain version
+    (`recursion._fill_perm_rows_plain`) on one plan at the node's shape (32
+    queries, 147 slots, 8 fold paths), bit for bit, over a trace of random
+    words: plan words 0, p - 1, p, p + 5 and 2^64 - 1 among random ones,
+    whole input states of 0 and of p - 1.  Times: `ms` and `device_ms` of
+    the launch alone (the plan already on the card), `plain_ms` of the plain
+    fill on the host, the host's cost of a `fill_perm_rows` call (the plan's
+    upload and the launch)."""
+    P = gl.P
+    sch = recursion.Schedule(4096, 64)
+    plan = recursion.PermPlan.empty(sch, ROWS_QUERIES)
+    if (plan.slots, len(plan.chains)) != (147, 4 + 8):
+        raise AssertionError(f"not the node's plan: {plan.slots} slots, {len(plan.chains)} paths")
+    words = rng.integers(0, P, plan.words.shape, dtype=np.uint64)
+    mask = rng.random(words.shape) < 0.2
+    words[mask] = rng.choice(np.asarray([0, P - 1, P, P + 5, (1 << 64) - 1], dtype=np.uint64),
+                             int(mask.sum()))
+    words[0, :, :12], words[1, :, :12] = 0, P - 1
+    words[:, :, 16] = rng.integers(0, 2, words.shape[:2], dtype=np.uint64)
+    plan.words[:] = words
+    cols = recursion.Layout(4096, 64).n_cols
+    host = rng.integers(0, P, (ROWS_QUERIES * plan.period, cols), dtype=np.uint64)
+    trace = gl.from_int(host, device)
+    t = time.perf_counter()
+    recursion._fill_perm_rows_plain(host.reshape(ROWS_QUERIES, plan.period, cols), plan)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    before = dict(kernels.LAUNCHES)
+    recursion.fill_perm_rows(trace, plan)
+    if (kernels.LAUNCHES["poseidon2_rows"] - before["poseidon2_rows"],
+            kernels.LAUNCHES["poseidon2"] - before["poseidon2"]) != (1, 0):
+        raise AssertionError("a fill of the verifier rows was not one launch of its own entry")
+    got = gl.to_int(trace)
+    if not (got == host).all():
+        diff = np.argwhere(got != host)
+        raise AssertionError(f"poseidon2_rows disagrees with its plain version at {len(diff)} "
+                             f"words, the first (row, column) {tuple(diff[0])}")
+    dev_words = torch.from_numpy(plan.words.reshape(-1).view(np.int64)).to(device)
+    dev_words = dev_words.reshape(plan.words.shape)
+
+    def launch():
+        kernels.poseidon2_verifier_rows(trace, plan.period, dev_words, plan.chains)
+
+    ms = cuda_time_ms(launch, 20)
+    bound = verifier_rows_bound(plan.slots, ROWS_QUERIES)
+    probed = verifier_rows_bound(plan.slots, ROWS_QUERIES, PROBED_MADS_PER_S["rate"])
+    result = {
+        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+        "host_us_per_launch": host_us_per_launch(lambda: recursion.fill_perm_rows(trace, plan),
+                                                 20),
+        "device_batch": plan.slots * ROWS_QUERIES, "device_ms": ms,
+        "device_bound_ms": bound["bound_ms"], "device_bound_by": bound["bound_by"],
+        "device_probed_bound_ms": probed["bound_ms"], "device_probed_bound_by": probed["bound_by"],
+    }
+    log(f"[kernels] poseidon2_rows: bit-exact vs the plain fill at {ROWS_QUERIES} queries x "
+        f"{plan.slots} slots ({len(plan.chains)} paths, {cols} columns), plan words at and "
+        f"above p; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms on the host, bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({probed['bound_ms']:.4f} ms by "
+        f"{probed['bound_by']} at the probed multiply-add rate); host "
+        f"{result['host_us_per_launch']:.1f} us per fill_perm_rows call")
+    return result
 
 
 def poseidon_fr_bound(rows: int, k_in: int, k_out: int, perms_per_row: int,
@@ -1626,6 +1714,7 @@ def phase_recursion(device) -> dict:
     if per_attestation > E_ATTESTATION_MOST:
         raise AssertionError(f"{per_attestation} launches of kernel E per attestation, "
                              f"expected at most {E_ATTESTATION_MOST}")
+    require_rows_once("recursion", steps["gen_aggregated_proof"], len(agg["children"]))
     require_launches("recursion", launches,
                      ("mont_mul", "mont_pow", "point_add", "point_add_masked", "point_add_g2",
                       "point_add_g2_masked", "poseidon2"))
@@ -1637,7 +1726,8 @@ def phase_recursion(device) -> dict:
         f"serial step 2 ({again['serial']:.3f} s) and to the mesh's again after it "
         f"({again['mesh, after the serial']:.3f} s)")
     for step, s in times.items():
-        log(f"[recursion] {step}: {s:.3f} s, poseidon2 launches {steps[step]['poseidon2']}")
+        log(f"[recursion] {step}: {s:.3f} s, poseidon2 launches {steps[step]['poseidon2']}, "
+            f"poseidon2_rows {steps[step]['poseidon2_rows']}")
     log(f"[recursion] kernel E launches per attestation: {per_attestation:g}")
     k = 0
     for name, s, mem in stages:
@@ -1975,6 +2065,7 @@ def phase_stark_wrap(device, signed: list) -> dict:
         require_launches(f"stark wrap, {step}", steps[step], ("poseidon2",))
     require_launches("stark wrap, gen_aggregated_proof", steps["gen_aggregated_proof"],
                      ("poseidon_fr",))
+    require_rows_once("stark wrap", steps["gen_aggregated_proof"], len(agg["children"]))
     require_at_most("stark wrap, gen_aggregated_proof", steps["gen_aggregated_proof"],
                     "poseidon_fr", F_STEP3_MOST)
     require_launches("stark wrap, gen_final_proof", steps["gen_final_proof"],
@@ -2096,7 +2187,7 @@ def phase_node_in_process(device, signed: list) -> dict:
         if step != "gen_batch_chunks":
             require_launches(f"in-process node, {step}", steps.launches[step],
                              {"gen_chunk_proof": ("poseidon2",),
-                              "gen_aggregated_proof": ("poseidon2",),
+                              "gen_aggregated_proof": ("poseidon2", "poseidon2_rows"),
                               "gen_final_proof": ("mont_mul", "point_add")}[step])
     require_launches("in-process node", launches, ("mont_mul", "point_add", "poseidon2"))
     log(f"[node] run --device cuda --final-wrap mimc (in-process BatchProver, recursion on, "
@@ -2384,7 +2475,7 @@ def main() -> int:
     paths += [phase(phase_recursion, device),
               phase(phase_stark_wrap, device, signed["stark-wrap"]),
               phase(phase_node_in_process, device, signed["node"])]
-    names = [*KERNEL_WORK, "poseidon2", "poseidon_fr", "keccak256"]
+    names = [*KERNEL_WORK, "poseidon2", "poseidon2_rows", "poseidon_fr", "keccak256"]
     launches = {name: sum(path[name] for path in paths) for name in names}
     require_launches("main", launches, names)
     rows = [

@@ -9,10 +9,13 @@ attestation STARK unprovable and unverifiable without anyone re-running
 host chunk verification.
 
 The layout, the schedule, the constraints (written against the algebra
-interface of models/air.py) and `build_verifier_trace` are the JAX
-package's; the trace is built in numpy on the host and the (rows, columns)
-trace goes to the device in one transfer, where `air.prove` extends,
-commits, composes and opens it.  The wrap-profile functions
+interface of models/air.py) and the verifier trace are the JAX package's.
+`device_verifier_trace` builds the trace's columns in numpy on the host,
+all but the Poseidon2 rows, for which it records a plan (`PermPlan`); the
+(rows, columns) trace goes to the device in one transfer, kernel E's
+verifier-rows entry fills the rows there from the plan (`fill_perm_rows`;
+the plain version on a CPU tensor), and `air.prove` extends, commits,
+composes and opens it.  The wrap-profile functions
 (`attest_chunk_wrap`, `wrap_attestation_instance`,
 `verify_attestation_wrap`) prove and check the same AIR under Poseidon2-Fr
 commitments (models/air_wrap.py), the form the Groth16 circuit verifies.
@@ -57,9 +60,10 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..ops import goldilocks as gl
-from ..ops import poseidon
+from ..ops import kernels, poseidon
 from ..utils.profiling import span
 from . import air as air_m
 from . import air_wrap, stark
@@ -1011,18 +1015,122 @@ def _perm_rows_np(state0: np.ndarray):
     return rows, aux, s
 
 
-def build_verifier_trace(child_proof: dict, q_c: int):
-    """Transcribe the child proof's query checks into an AIR trace.
+# ---------------------------------------------------------------------------
+# the Poseidon2 slots: a host plan, filled on the card or by the plain version
 
-    Returns (air, trace, publics, boundaries), the trace an (n, C) numpy
-    uint64 array on the host.  The function just transcribes — an INVALID
+PLAN_WORDS = kernels.ROWS_PLAN_WORDS  # a plan entry: input state, sibling, direction bit
+PERM_COLS = kernels.ROWS_COLS  # Layout's state, a2, a4, a6: the trace's first 48 columns
+
+
+def perm_chains(sch: Schedule):
+    """The permutation slots of a period as the fill takes them:
+    (chains, alone).  A chain is a Merkle path, (first slot, depth): its leaf
+    slot, then `depth` slots, each hashing the previous slot's digest with
+    the level's sibling.  `alone` are the slots whose input states the plan
+    gives outright: the index chain's and the coefficient stream's.  Every
+    slot before the pads is in exactly one of them."""
+    chains = [(p * (1 + sch.depth), sch.depth) for p in range(4)]
+    chains += [(sch.fleaf_slots[l], sch.fdepth[l]) for l in range(sch.R)]
+    alone = [sch.idx_slot] + list(range(sch.stream0_slot, sch.last_stream_slot + 1))
+    return chains, alone
+
+
+@dataclasses.dataclass
+class PermPlan:
+    """What the fill needs of one verifier trace: the period's length, its
+    Merkle paths (`perm_chains`) and, per query and permutation slot, a
+    plan entry of PLAN_WORDS words: the input state of a slot that starts a
+    path or stands alone (zero for the rest: the fill derives them), and the
+    sibling and direction bit that each later slot of a path loads."""
+
+    period: int
+    chains: list
+    alone: list
+    words: np.ndarray  # (Q, slots, PLAN_WORDS) uint64
+
+    @classmethod
+    def empty(cls, sch: Schedule, queries: int) -> "PermPlan":
+        chains, alone = perm_chains(sch)
+        words = np.zeros((queries, sch.last_stream_slot + 1, PLAN_WORDS), dtype=np.uint64)
+        return cls(sch.L, chains, alone, words)
+
+    @property
+    def queries(self) -> int:
+        return self.words.shape[0]
+
+    @property
+    def slots(self) -> int:
+        return self.words.shape[1]
+
+    def load(self, slot: int, sib: np.ndarray, bit: np.ndarray) -> None:
+        """A path slot's sibling (Q, 4) and bit (Q,)."""
+        self.words[:, slot, W : W + 4] = sib
+        self.words[:, slot, W + 4] = bit
+
+
+def fill_perm_rows(trace: torch.Tensor, plan: PermPlan) -> None:
+    """Fill the state, a2, a4 and a6 columns of every permutation slot of
+    `trace`, an (n, C) int64 tensor of canonical words, in place.  A CUDA
+    tensor goes to kernel E's verifier-rows entry (ops/kernels.py, one launch
+    an attestation); a CPU tensor to the plain version.  Its span
+    "recursion.perm_rows" holds the plan's upload and the launch (it does not
+    wait for the card)."""
+    on_card = trace.is_cuda
+    with span("recursion.perm_rows", slots=plan.slots, states=plan.slots * plan.queries,
+              on_card=on_card):
+        if on_card:
+            words = torch.from_numpy(plan.words.reshape(-1).view(np.int64)).to(trace.device)
+            kernels.poseidon2_verifier_rows(trace, plan.period, words.reshape(plan.words.shape),
+                                            plan.chains)
+            return
+        rows = trace.numpy().view(np.uint64)
+        _fill_perm_rows_plain(rows.reshape(plan.queries, plan.period, -1), plan)
+
+
+def _fill_perm_rows_plain(tr: np.ndarray, plan: PermPlan) -> None:
+    """The verifier-rows kernel's plain version on a (Q, L, C) view: the
+    plan walked slot by slot with `_perm_rows_np`, all queries at once."""
+
+    def fill(slot: int, st0: np.ndarray) -> np.ndarray:
+        rows, aux, fin = _perm_rows_np(st0)
+        b = slot * SLOT
+        tr[:, b : b + SLOT, :W] = rows
+        tr[:, b : b + SLOT, W:PERM_COLS] = aux.reshape(plan.queries, SLOT, 3 * W)
+        return fin
+
+    for first, depth in plan.chains:
+        dig = fill(first, plan.words[:, first, :W])
+        for slot in range(first + 1, first + depth + 1):
+            sib, bit = plan.words[:, slot, W : W + 4], plan.words[:, slot, W + 4]
+            right = (bit == 1)[:, None]  # the node is the right child: its sibling goes left
+            st0 = np.zeros((plan.queries, W), dtype=np.uint64)
+            st0[:, :4] = np.where(right, sib, dig[:, :4])
+            st0[:, 4:8] = np.where(right, dig[:, :4], sib)
+            dig = fill(slot, st0)
+    for slot in plan.alone:
+        fill(slot, plan.words[:, slot, :W])
+
+
+def device_verifier_trace(child_proof: dict, q_c: int, device):
+    """Transcribe the child proof's query checks into an AIR trace on
+    `device`: the host's columns and plan (`_transcribe`), uploaded
+    ("recursion.upload"), then the plan's Poseidon2 rows filled there (on
+    the card by kernel E's verifier-rows entry).
+
+    Returns (air, trace, publics, boundaries), the trace an (n, C) int64
+    tensor of canonical words.  The function just transcribes — an INVALID
     child proof produces a constraint-violating trace, which air.prove
     rejects (FRI terminal-degree gate).  Its span "recursion.build" holds
     "recursion.replay", "recursion.paths" (the trace's and the fold
-    layers' Merkle paths), "recursion.coeffs" (the coefficient stream) and
-    one "recursion.perm_rows" for each permutation slot filled."""
+    layers' Merkle paths), "recursion.coeffs" (the coefficient stream),
+    "recursion.upload" and one "recursion.perm_rows" (the rows)."""
     with span("recursion.build"):
-        return _transcribe(child_proof, q_c)
+        air, trace, plan, publics, bnds = _transcribe(child_proof, q_c)
+        with span("recursion.upload"):
+            dev = gl.from_int(trace, device)
+        del trace
+        fill_perm_rows(dev, plan)
+    return air, dev, publics, bnds
 
 
 def _transcribe(child_proof: dict, q_c: int):
@@ -1088,31 +1196,22 @@ def _transcribe(child_proof: dict, q_c: int):
         tr[:, :, lay.la[p]] = la[:, p : p + 1]
         tr[:, :, lay.ld[p]] = ld[:, p : p + 1]
 
-    def fill_perm(slot: int, st0: np.ndarray) -> np.ndarray:
-        """Run one permutation slot for all queries; fill state + aux
-        columns; return the (Q, 12) output state."""
-        with span("recursion.perm_rows"):
-            rows, aux, fin = _perm_rows_np(st0)
-            b = slot * SLOT
-            for i in range(W):
-                tr[:, b : b + SLOT, lay.state[i]] = rows[:, :, i]
-                tr[:, b : b + SLOT, lay.a2[i]] = aux[:, :, 0, i]
-                tr[:, b : b + SLOT, lay.a4[i]] = aux[:, :, 1, i]
-                tr[:, b : b + SLOT, lay.a6[i]] = aux[:, :, 2, i]
-            return fin
+    # the Poseidon2 slots' inputs: the fill (fill_perm_rows) computes their
+    # rows, the trace's state, a2, a4 and a6 columns
+    plan = PermPlan.empty(sch, Q)
+    assert lay.state + lay.a2 + lay.a4 + lay.a6 == list(range(PERM_COLS))
 
     # --- Merkle paths (slots are query-parallel) ------------------------------
     with span("recursion.paths"):
         jj = idxs[:, 0]  # the pair index of each query
         for p in range(4):
             base_slot = p * (1 + sch.depth)
-            st0 = np.zeros((Q, W), dtype=np.uint64)
-            st0[:, 0], st0[:, 1] = la[:, p], ld[:, p]
-            st0[:, RATE] = 2
+            leaf = plan.words[:, base_slot]
+            leaf[:, 0], leaf[:, 1] = la[:, p], ld[:, p]
+            leaf[:, RATE] = 2
             # iacc: 0 during the leaf slot
             b0 = base_slot * SLOT
             tr[:, b0 : b0 + SLOT, lay.iacc] = 0
-            dig = fill_perm(base_slot, st0)
             run_idx = np.zeros(Q, dtype=np.int64)
             for k in range(sch.depth):
                 slot = base_slot + 1 + k
@@ -1128,15 +1227,9 @@ def _transcribe(child_proof: dict, q_c: int):
                         bit.astype(np.uint64), np.uint64(wk)
                     )
                 run_idx = run_idx + (bit.astype(np.int64) << k)
-                st0 = np.zeros((Q, W), dtype=np.uint64)
-                bitu = bit.astype(np.uint64)
-                for j in range(4):
-                    # left = bit ? sib : dig ; right = bit ? dig : sib
-                    st0[:, j] = np.where(bit == 1, sib[:, j], dig[:, j])
-                    st0[:, 4 + j] = np.where(bit == 1, dig[:, j], sib[:, j])
+                plan.load(slot, sib, bit.astype(np.uint64))
                 b = slot * SLOT
                 tr[:, b : b + SLOT, lay.iacc] = run_idx.astype(np.uint64)[:, None]
-                dig = fill_perm(slot, st0)
 
     # iacc holds the last path's final index from the idx slot to period
     # end (path 3 for zero-layer; filled again below for fold layers)
@@ -1198,12 +1291,11 @@ def _transcribe(child_proof: dict, q_c: int):
                 tr[:, :, lay.fjx[l]] = jj_l.astype(np.uint64)[:, None]
                 # Merkle path slots (identical machinery to the trace paths)
                 base_slot = sch.fleaf_slots[l]
-                st0 = np.zeros((Q, W), dtype=np.uint64)
-                st0[:, 0], st0[:, 1] = u_l, v_l
-                st0[:, RATE] = 2
+                leaf = plan.words[:, base_slot]
+                leaf[:, 0], leaf[:, 1] = u_l, v_l
+                leaf[:, RATE] = 2
                 b0 = base_slot * SLOT
                 tr[:, b0 : b0 + SLOT, lay.iacc] = 0
-                dig = fill_perm(base_slot, st0)
                 run_idx = np.zeros(Q, dtype=np.int64)
                 for k in range(d_l):
                     slot = base_slot + 1 + k
@@ -1220,13 +1312,9 @@ def _transcribe(child_proof: dict, q_c: int):
                     for j in range(4):
                         tr[:, load_row, lay.sib[j]] = sib[:, j]
                     run_idx = run_idx + (bit.astype(np.int64) << k)
-                    st0 = np.zeros((Q, W), dtype=np.uint64)
-                    for j in range(4):
-                        st0[:, j] = np.where(bit == 1, sib[:, j], dig[:, j])
-                        st0[:, 4 + j] = np.where(bit == 1, dig[:, j], sib[:, j])
+                    plan.load(slot, sib, bit.astype(np.uint64))
                     b = slot * SLOT
                     tr[:, b : b + SLOT, lay.iacc] = run_idx.astype(np.uint64)[:, None]
-                    dig = fill_perm(slot, st0)
                 # next layer's x: (-1)^tb * x^2
                 x_l = np.where(tb_l == 1, sm(np.zeros_like(y_l), y_l), y_l)
                 ff_prev = f_l
@@ -1240,16 +1328,15 @@ def _transcribe(child_proof: dict, q_c: int):
 
     # --- idx chain slot (sequential across queries) ----------------------------
     chain_prev = np.zeros((Q, 4), dtype=np.uint64)
+    chain_out = np.zeros((Q, 4), dtype=np.uint64)
     chain = [0, 0, 0, 0]
     for q in range(Q):
         chain_prev[q] = chain
         st = chain + [int(jj[q]) % gl.P] + [0] * (W - 5)
         chain = poseidon.perm_host(st)[:4]
-    chain_dig = chain
-    st0 = np.zeros((Q, W), dtype=np.uint64)
-    st0[:, :4] = chain_prev
-    st0[:, 4] = jj.astype(np.uint64)
-    chain_out = fill_perm(sch.idx_slot, st0)
+        chain_out[q] = chain
+    plan.words[:, sch.idx_slot, :4] = chain_prev
+    plan.words[:, sch.idx_slot, 4] = jj.astype(np.uint64)
     # chain register: prev value through the chainx row, new value after
     cx = sch.chainx_row
     for j in range(4):
@@ -1269,8 +1356,10 @@ def _transcribe(child_proof: dict, q_c: int):
         hv = np.zeros(Q, dtype=np.uint64)
         arg_u = x_term if lay.R else x_u
         neg_x = sm(np.zeros_like(x_u), x_u)
-        st = np.zeros((Q, W), dtype=np.uint64)
-        st[:, RATE] = sch.n_stream
+        # the sponge's state is every query's: its blocks' permutations once
+        # on the host, for the plan's inputs and the pads' state
+        st = [0] * W
+        st[RATE] = sch.n_stream
         hsteps = min(RATE, sch.n_stream)
         for b_i in range(sch.n_blocks):
             slot = sch.stream0_slot + b_i
@@ -1280,9 +1369,9 @@ def _transcribe(child_proof: dict, q_c: int):
             for j in range(hsteps):
                 tr[:, b : b + hsteps, lay.D[j]] = np.uint64(block[j])
             # absorb into sponge lanes
-            st = st.copy()
             for j in range(hsteps):
-                st[:, j] = am(st[:, j], np.full(Q, block[j], dtype=np.uint64))
+                st[j] = (st[j] + block[j]) % gl.P
+            plan.words[:, slot, :W] = st
             # horner rows: acc at row b..b+hsteps (value BEFORE each step)
             for r in range(hsteps):
                 tr[:, b + r, lay.hu] = hu
@@ -1292,7 +1381,7 @@ def _transcribe(child_proof: dict, q_c: int):
             # rows hsteps..31 hold the post-step values
             tr[:, b + hsteps : b + SLOT, lay.hu] = hu[:, None]
             tr[:, b + hsteps : b + SLOT, lay.hv] = hv[:, None]
-            st = fill_perm(slot, st)
+            st = poseidon.perm_host(st)
         # hu/hv hold through the pads to period end
         pe = (sch.last_stream_slot + 1) * SLOT
         tr[:, pe:, lay.hu] = hu[:, None]
@@ -1301,7 +1390,7 @@ def _transcribe(child_proof: dict, q_c: int):
         for s_i in range(sch.last_stream_slot + 1, len(sch.slots)):
             b = s_i * SLOT
             for i in range(W):
-                tr[:, b : b + SLOT, lay.state[i]] = st[:, i : i + 1]
+                tr[:, b : b + SLOT, lay.state[i]] = st[i]
 
     # --- arithmetic scratch registers (period-constant) -------------------------
     sq = mm(x_u, x_u)
@@ -1351,7 +1440,7 @@ def _transcribe(child_proof: dict, q_c: int):
 
     trace = tr.reshape(Q * L, C)
     publics, bnds = _instance(header, alphas, betas, indices)
-    return air, trace, publics, bnds
+    return air, trace, plan, publics, bnds
 
 
 # ---------------------------------------------------------------------------
@@ -1363,10 +1452,9 @@ def attest_chunk(child_proof: dict, num_queries_agg: int = 30, *, device) -> dic
     aggregation step.  Raises (via air.prove's degree gate) if the chunk
     proof is invalid."""
     q_c = len(child_proof["fri"]["queries"])
-    air, trace, publics, bnds = build_verifier_trace(child_proof, q_c)
+    air, trace, publics, bnds = device_verifier_trace(child_proof, q_c, device)
     air_m.stage("trace")
-    air_proof = air_m.prove(air, gl.from_int(trace, device), publics, bnds,
-                            num_queries=num_queries_agg)
+    air_proof = air_m.prove(air, trace, publics, bnds, num_queries=num_queries_agg)
     return {
         "type": "chunk-attested",
         "q_c": q_c,
@@ -1383,11 +1471,11 @@ def attest_chunk_wrap(child_proof: dict, num_queries_wrap: int = 2, grind_bits: 
     The wrap STARK's own soundness: num_queries_wrap FRI queries at ratio
     ext_blowup/2 plus grind_bits of proof of work."""
     q_c = len(child_proof["fri"]["queries"])
-    air, trace, publics, bnds = build_verifier_trace(child_proof, q_c)
+    air, trace, publics, bnds = device_verifier_trace(child_proof, q_c, device)
     if ext_blowup != air.ext_blowup:
         air = dataclasses.replace(air, ext_blowup=ext_blowup)
     air_m.stage("trace")
-    wrap_proof = air_wrap.prove_wrap(air, gl.from_int(trace, device), publics, bnds,
+    wrap_proof = air_wrap.prove_wrap(air, trace, publics, bnds,
                                      num_queries=num_queries_wrap, grind_bits=grind_bits)
     return {
         "type": "chunk-attested-wrap",

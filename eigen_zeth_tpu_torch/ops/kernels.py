@@ -13,6 +13,8 @@ hasher:
   C point_scan_step  csrc/scan_step.cu   eigen_zeth_tpu/ops/pallas/ec_pl.py:242
   D point_madd       csrc/point_madd.cu  eigen_zeth_tpu/ops/pallas/ec_pl.py:186
   E poseidon2        csrc/poseidon2_gl.cu  eigen_zeth_tpu/ops/poseidon.py:431
+    poseidon2_rows   csrc/poseidon2_gl_rows.cu  none (host numpy there:
+                                            eigen_zeth_tpu/models/recursion.py:973)
   F poseidon_fr      csrc/poseidon2_fr.cuh eigen_zeth_tpu/ops/poseidon_fr.py:271
                      (its core; entries in poseidon2_fr.cu, _fr_perm.cu, _fr_tree.cu)
   G keccak256        csrc/keccak.cu      eigen_zeth_tpu/ops/keccak.py:122, :152
@@ -29,7 +31,12 @@ thread per state, with four entry points (`poseidon2_perm`,
 a whole Merkle tree in one launch) that share one launch count;
 ops/poseidon.py sends CUDA tensors to them and keeps the plain versions, and
 every Merkle commit of the chunk STARKs and of the AIR prover runs through
-them.  F is Poseidon2 over BN254 Fr on its own lazy Montgomery core
+them.  A fifth entry of E, `poseidon2_verifier_rows`
+(csrc/poseidon2_gl_rows.cu, counted apart as "poseidon2_rows"), fills the
+Poseidon2 columns of every permutation slot of the verifier AIR's trace in
+place: rows that the JAX package builds in host numpy
+(eigen_zeth_tpu/models/recursion.py:973), so it replaces no TPU kernel.  F
+is Poseidon2 over BN254 Fr on its own lazy Montgomery core
 (csrc/poseidon2_fr.cuh: values kept in ranges above r instead of reduced
 after every operation, Shoup's product by the diagonal), one thread per
 state, with three entry points (`poseidon_fr_perm`, `poseidon_fr_hash_rows`,
@@ -54,7 +61,8 @@ Each wrapper takes its plain PyTorch version only for a CPU tensor.  For a
 CUDA tensor it launches the kernel or raises; nothing falls back.  Each
 launch adds one to `LAUNCHES[name]`; a point add's launch with a mask also
 adds one to `LAUNCHES[name + "_masked"]`; each of E's entry points adds one
-to `LAUNCHES["poseidon2"]`, each of F's to `LAUNCHES["poseidon_fr"]`.
+to `LAUNCHES["poseidon2"]` (the verifier rows to `LAUNCHES["poseidon2_rows"]`),
+each of F's to `LAUNCHES["poseidon_fr"]`.
 """
 
 from __future__ import annotations
@@ -125,6 +133,12 @@ KERNELS = {
         "route": "cuda",
         "source": "eigen_zeth_tpu_torch/csrc/keccak.cu",
         "replaces": "eigen_zeth_tpu/ops/keccak.py:122",
+    },
+    "poseidon2_rows": {
+        "route": "cuda",
+        "source": "eigen_zeth_tpu_torch/csrc/poseidon2_gl_rows.cu",
+        # no TPU kernel: the JAX package builds these rows in host numpy
+        "replaces": "eigen_zeth_tpu/models/recursion.py:973",
     },
 }
 # the point adds under a mask (the scans' select): the same entries, counted
@@ -220,6 +234,9 @@ SIGNATURES = {
     "poseidon_fr_merkle_levels": [_VP, _LL, _VP, _VP, _VP, _VP, _UI, _VP, _VP],
     # kernel G: the padded lanes, n, blocks a message, the digests, the stream
     "keccak256": [_VP, _LL, _LL, _VP, _VP],
+    # kernel E's verifier rows: the trace, its row stride and period, queries,
+    # slots, the plan, the paths (host), their count, E's constants, the stream
+    "poseidon2_verifier_rows": [_VP, _LL, _LL, _LL, _LL, _VP, _VP, _LL, _VP, _VP],
 }
 
 
@@ -660,9 +677,9 @@ def _poseidon2_consts() -> int:
     return _poseidon_consts[1]
 
 
-def _launch_poseidon2(entry: str, index: int, *args) -> None:
+def _launch_poseidon2(entry: str, index: int, *args, count: str = "poseidon2") -> None:
     """Launch `ezt_poseidon2_<entry>` on the current stream of CUDA device
-    `index` and count it under "poseidon2"; raise if the card refuses the
+    `index` and count it under `count`; raise if the card refuses the
     launch.  The device and the raw stream come from PyTorch's C accessors
     (what its own compiled kernels use): a plain call each, where the
     torch.cuda functions build Python objects."""
@@ -676,7 +693,7 @@ def _launch_poseidon2(entry: str, index: int, *args) -> None:
             rc = fn(*args, _poseidon2_consts(), torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"poseidon2_{entry}: kernel launch failed with cudaError {rc}")
-    LAUNCHES["poseidon2"] += 1
+    LAUNCHES[count] += 1
 
 
 def _check_words(name: str, t: torch.Tensor, width: int | None = None) -> int:
@@ -772,6 +789,45 @@ def poseidon2_merkle_levels(level: torch.Tensor) -> list[torch.Tensor]:
                           rows.stride(1), n, trees, ctypes.cast(ptrs, ctypes.c_void_p),
                           tickets.data_ptr(), per_tree)
     return outs
+
+
+ROWS_COLS = 48  # csrc/poseidon2_gl_rows.cuh: a slot row's state, t^2, t^4, t^6
+ROWS_PLAN_WORDS = 17  # kPlanWords: a plan entry's input state, sibling, bit
+ROWS_MAX_CHAINS = 64  # csrc/poseidon2_gl_rows.cu: kMaxChains
+
+
+def poseidon2_verifier_rows(trace: torch.Tensor, period: int, plan: torch.Tensor,
+                            chains) -> None:
+    """Kernel E's verifier-rows entry: every Poseidon2 slot of the verifier
+    AIR's trace, filled in place.  trace: a contiguous (Q·period, C) CUDA
+    int64 tensor; slot j of query q starts at row q·period + 32·j, and its
+    32 rows get columns 0..47 (state, t^2, t^4, t^6).  plan: a
+    contiguous (Q, S, 17) int64 tensor on the same device, per query and
+    slot the input state (12 words), the sibling (4) and the bit (0 or 1);
+    chains: (first slot, depth) of each Merkle path, whose later slots'
+    inputs the kernel derives (and writes into `plan`).  Counted under
+    "poseidon2_rows"; the plain version is models/recursion.py's
+    `_fill_perm_rows_plain`."""
+    index = _check_words("poseidon2_verifier_rows", trace)
+    if _check_words("poseidon2_verifier_rows", plan, ROWS_PLAN_WORDS) != index:
+        raise ValueError("poseidon2_verifier_rows: the plan must lie on the trace's device")
+    if trace.dim() != 2 or plan.dim() != 3 or not (trace.is_contiguous() and plan.is_contiguous()):
+        raise ValueError(f"poseidon2_verifier_rows: expected a contiguous (n, C) trace and "
+                         f"(Q, S, 17) plan, got {tuple(trace.shape)} and {tuple(plan.shape)}")
+    queries, slots, _ = plan.shape
+    rows, width = trace.shape
+    if rows != queries * period or 32 * slots > period or width < ROWS_COLS:
+        raise ValueError(f"poseidon2_verifier_rows: {slots} slots of {queries} periods of "
+                         f"{period} rows do not fit a {rows} x {width} trace")
+    chains = [(int(first), int(depth)) for first, depth in chains]
+    if len(chains) > ROWS_MAX_CHAINS or any(
+            first < 0 or depth < 0 or first + depth >= slots for first, depth in chains):
+        raise ValueError(f"poseidon2_verifier_rows: paths {chains} do not fit {slots} slots")
+    table = (ctypes.c_longlong * max(1, 2 * len(chains)))(*(v for c in chains for v in c))
+    if queries and slots:
+        _launch_poseidon2("verifier_rows", index, trace.data_ptr(), width, period, queries,
+                          slots, plan.data_ptr(), ctypes.cast(table, ctypes.c_void_p),
+                          len(chains), count="poseidon2_rows")
 
 
 # ---------------------------------------------------------------------------

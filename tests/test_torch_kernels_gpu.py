@@ -11,8 +11,10 @@ windows x 1,326 MSM points; the scan step and the mixed add at a quarter of
 that; the G2 and masked adds at an eighth; kernel E, Poseidon2 over
 Goldilocks, on rows of every kind of length, column-major and strided
 inputs, and a tiny attestation proved on the card against the CPU's;
-kernel F, Poseidon2 over BN254 Fr, through its three entry points with
-edge states, and the card's grind search against the host's; kernel G,
+kernel E's verifier rows against the plain fill at the node's shape and
+a zero-layer child's; kernel F, Poseidon2 over BN254 Fr, through its three
+entry points with edge states, and the card's grind search against the
+host's; kernel G,
 the batched keccak256, at the edge lengths of the rate; the G2 add's two
 lanes a point at batches that cut a pair or a warp, with every degenerate
 case at every place in a warp; the power's sliding window at its edge
@@ -22,11 +24,14 @@ plain version must agree bit for bit, and the MSMs must equal the host sum
 of scalar multiples.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from eigen_zeth_tpu_torch.ops import bigint, bn254, kernels, msm
+from eigen_zeth_tpu_torch.utils import profiling
 
 BATCH = 32 * 1326
 
@@ -188,6 +193,27 @@ def test_cuda_tensors_never_take_a_plain_version():
         kernels.mont_mul(bigint.MontCtx((1 << 256) - 189), acc[0], acc[0])
     with pytest.raises(ValueError):  # the two-lane Fq2 core's range: q < 2^254
         kernels.point_add_g2(bigint.MontCtx((1 << 254) + 1), g2, g2)
+    # kernel E's verifier rows: the trace and the plan on the card, in range
+    from eigen_zeth_tpu_torch.models import recursion
+
+    plan = recursion.PermPlan.empty(recursion.Schedule(8), 2)
+    words = torch.zeros(plan.words.shape, dtype=torch.int64, device=dev)
+    trace = torch.zeros((2 * plan.period, 64), dtype=torch.int64, device=dev)
+    rows = functools.partial(kernels.poseidon2_verifier_rows, period=plan.period)
+    with pytest.raises(ValueError):
+        rows(trace, plan=words.cpu(), chains=plan.chains)
+    with pytest.raises(ValueError):
+        rows(trace.cpu(), plan=words, chains=plan.chains)
+    with pytest.raises(TypeError):
+        rows(trace.int(), plan=words, chains=plan.chains)
+    with pytest.raises(ValueError):  # rows narrower than a slot row's 48 words
+        rows(trace[:, :40].contiguous(), plan=words, chains=plan.chains)
+    with pytest.raises(ValueError):
+        rows(trace[:, :56], plan=words, chains=plan.chains)
+    with pytest.raises(ValueError):  # a path past the last slot
+        rows(trace, plan=words, chains=[(0, plan.slots)])
+    with pytest.raises(ValueError):
+        rows(trace[: plan.period], plan=words, chains=plan.chains)
 
 
 EDGE_WORDS = [0, 1, 2, (1 << 256) - 1, (1 << 255) - 1, (1 << 224) - 1, 0xFFFFFFFF,
@@ -637,10 +663,48 @@ def test_attestation_on_the_card_equals_the_cpu_one():
     child = stark.prove_chunk([3, 1, 4, 1, 5, 9, 2], 7, params, n_rows=8, device=dev)
     assert child == stark.prove_chunk([3, 1, 4, 1, 5, 9, 2], 7, params, n_rows=8, device="cpu")
     kernels.reset_launches()
-    att = recursion.attest_chunk(child, num_queries_agg=8, device=dev)
-    assert kernels.LAUNCHES["poseidon2"] > 0
+    profiling.enable()
+    try:
+        att = recursion.attest_chunk(child, num_queries_agg=8, device=dev)
+    finally:
+        spans = profiling.disable()
+    assert kernels.LAUNCHES["poseidon2"] > 0 and kernels.LAUNCHES["poseidon2_rows"] == 1
+    assert [s.attrs["on_card"] for s in spans if s.name == "recursion.perm_rows"] == [True]
     assert att == recursion.attest_chunk(child, num_queries_agg=8, device=torch.device("cpu"))
     assert recursion.verify_attestation(att, expected_queries=2, expected_rows=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_c,terminal,queries", [(4096, 64, 32), (8, None, 5)],
+                         ids=["node-shape", "zero-layer"])
+def test_poseidon2_verifier_rows_kernel_matches_plain(n_c, terminal, queries):
+    """Kernel E's verifier rows against the plain fill on the same plan, over
+    a trace of random words: the node's shape (147 slots, R = 8) and a
+    zero-layer child (a last warp part full); plan words 0, p - 1, p,
+    p + 5 and 2^64 - 1 among random ones, whole states of 0 and of p - 1."""
+    from eigen_zeth_tpu_torch.models import recursion as rec
+    from eigen_zeth_tpu_torch.ops import goldilocks as gl
+
+    dev = _cuda()
+    P = gl.P
+    plan = rec.PermPlan.empty(rec.Schedule(n_c, terminal), queries)
+    rng = np.random.default_rng(30 + n_c)
+    words = rng.integers(0, P, plan.words.shape, dtype=np.uint64)
+    mask = rng.random(words.shape) < 0.2
+    words[mask] = rng.choice(np.asarray([0, P - 1, P, P + 5, (1 << 64) - 1], dtype=np.uint64),
+                             int(mask.sum()))
+    words[0, :, :12], words[1, :, :12] = 0, P - 1
+    words[:, :, 16] = rng.integers(0, 2, words.shape[:2], dtype=np.uint64)
+    plan.words[:] = words
+    cols = rec.Layout(n_c, terminal).n_cols
+    host = rng.integers(0, P, (queries * plan.period, cols), dtype=np.uint64)
+    trace = gl.from_int(host, dev)
+    rec._fill_perm_rows_plain(host.reshape(queries, plan.period, cols), plan)
+    before = dict(kernels.LAUNCHES)
+    rec.fill_perm_rows(trace, plan)
+    assert kernels.LAUNCHES["poseidon2_rows"] == before["poseidon2_rows"] + 1
+    assert kernels.LAUNCHES["poseidon2"] == before["poseidon2"]
+    assert (gl.to_int(trace) == host).all()
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ shape, and tests/test_torch_recursion_tamper.py holds the chunk proofs
 that cannot be attested.
 """
 
+import functools
 import json
 
 import numpy as np
@@ -50,14 +51,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def make_child(name):
+@functools.lru_cache(maxsize=None)
+def _child_json(name):
     rows, length, _ = SHAPES[name]
     rng = np.random.default_rng(0x5EC + rows)
     data = [int(v) for v in rng.integers(0, P, length, dtype=np.uint64)]
     iv = int(rng.integers(0, P, dtype=np.uint64))
     child = jstark.prove_chunk(data, iv=iv, params=jstark.StarkParams(**PARAMS), n_rows=rows)
     assert stark.verify_chunk(child, stark.StarkParams(**PARAMS))
-    return json.loads(json.dumps(child))
+    return json.dumps(child)
+
+
+def make_child(name):
+    """A fresh copy of the shape's chunk proof (proved once): callers that
+    tamper with it change their own copy."""
+    return json.loads(_child_json(name))
 
 
 def make_bundle(name):
@@ -78,18 +86,42 @@ def _pin(name):
     return {} if terminal is None else {"expected_terminal": terminal}
 
 
-def test_verifier_trace_equals_the_jax_package(bundle):
-    name, child, _, _ = bundle
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_verifier_trace_equals_the_jax_package(name):
+    """The host's columns and plan, uploaded to a CPU tensor, then the plan's
+    Poseidon2 rows by the plain fill: word for word the JAX package's trace."""
+    child = make_child(name)
     jair, jtrace, jpub, jbnd = jrec.build_verifier_trace(child, 2)
-    air, trace, pub, bnd = rec.build_verifier_trace(child, 2)
-    assert isinstance(trace, np.ndarray) and trace.dtype == np.uint64
-    assert trace.shape == (jair.n, jair.n_cols) == (air.n, air.n_cols)
-    assert (trace == jgl.to_int(jtrace)).all()
+    air, trace, pub, bnd = rec.device_verifier_trace(child, 2, CPU)
+    assert isinstance(trace, torch.Tensor) and trace.dtype == torch.int64
+    assert tuple(trace.shape) == (jair.n, jair.n_cols) == (air.n, air.n_cols)
+    assert (gl.to_int(trace) == jgl.to_int(jtrace)).all()
     assert pub == jpub
     assert [(b.col, b.row, b.value) for b in bnd] == [(b.col, b.row, b.value) for b in jbnd]
     assert air.name == jair.name and len(air.constraints) == len(jair.constraints)
     assert [c.arity for c in air.constraints] == [c.arity for c in jair.constraints]
     assert all((a == b).all() for a, b in zip(air.periodic, jair.periodic))
+
+
+@pytest.mark.parametrize("n_c,terminal,slots", [(4096, 64, 147), (4096, None, 573), (32, 32, 47),
+                                               (8, None, 26)])
+def test_the_plan_covers_every_permutation_slot_once(n_c, terminal, slots):
+    """4 x (1 + 14) + sum(14 - l for l < 8) + 1 + 2 = 147 at the node's shape;
+    a zero-layer child: 4 paths, the index slot and n_c / 8 stream blocks."""
+    sch = rec.Schedule(n_c, terminal)
+    chains, alone = rec.perm_chains(sch)
+    covered = [s for first, depth in chains for s in range(first, first + depth + 1)] + alone
+    assert sorted(covered) == [s for s in range(len(sch.slots)) if sch.is_perm(s)]
+    assert len(covered) == len(set(covered)) == slots
+    assert len(chains) == 4 + sch.R
+    for first, depth in chains:  # a leaf, then the levels of its own path
+        head, *levels = sch.slots[first : first + depth + 1]
+        assert head[0] in ("leaf", "fleaf") and len(levels) == depth
+        assert [lv[:2] for lv in levels] == [({"leaf": "comp", "fleaf": "fcomp"}[head[0]],
+                                              head[1])] * depth
+    assert [sch.slots[s][0] for s in alone] == ["idx"] + ["stream"] * sch.n_blocks
+    plan = rec.PermPlan.empty(sch, 3)
+    assert plan.words.shape == (3, slots, rec.PLAN_WORDS) and plan.period == sch.L
 
 
 def test_layout_and_schedule_are_the_jax_ones():

@@ -4,7 +4,8 @@ A 32-row chunk with terminal 32: its FRI has two real fold layers, which the
 verifier AIR checks with one more Merkle path each plus the fold, select and
 index relations.  The chunk proof is made once and handed to the JAX package
 and to the port; the test functions are the zero-layer file's, run here on
-this file's `bundle`.  Tolerance: none (equal arrays, equal dicts).
+this file's `bundle` (the verifier trace's test takes both children in
+tests/test_torch_recursion.py).  Tolerance: none (equal arrays, equal dicts).
 """
 
 import pytest
@@ -17,7 +18,6 @@ from test_torch_recursion import (  # noqa: F401  (collected here, on this file'
     test_host_helpers_are_the_jax_ones,
     test_query_count_rows_and_terminal_are_pinned,
     test_tampered_attestation_is_rejected,
-    test_verifier_trace_equals_the_jax_package,
 )
 
 

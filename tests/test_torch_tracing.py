@@ -14,14 +14,16 @@ torch.profiler's clock.
 
 import hashlib
 import json
+import re
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from eigen_zeth_tpu_torch.models import air, air_wrap, stark
+from eigen_zeth_tpu_torch.models import air, air_wrap, recursion, stark
 from eigen_zeth_tpu_torch.ops import goldilocks as gl
+from eigen_zeth_tpu_torch.ops import kernels
 from eigen_zeth_tpu_torch.protocol import prover_service as ps
 from eigen_zeth_tpu_torch.protocol.messages import ProofResultCode
 from eigen_zeth_tpu_torch.utils import profiling
@@ -44,7 +46,8 @@ SPANS = {
     "step3": {"step3"},
     "step4": {"step4", "step4.witness", "step4.h", "step4.msm"},
     "step3-recursion": {"step3", "recursion.build", "recursion.replay", "recursion.perm_rows",
-                        "recursion.paths", "recursion.coeffs", "air.lde", "air.merkle",
+                        "recursion.paths", "recursion.coeffs", "recursion.upload",
+                        "air.lde", "air.merkle",
                         "air.transcript", "air.composition", "air.fri", "air.openings",
                         "fri.layer", "fri.transcript", "fri.terminal", "fri.openings",
                         "device.read"},
@@ -206,6 +209,44 @@ def test_stage_hook_sees_the_same_stages(recursion_step3):
     _, spans, stages = recursion_step3
     assert stages == STAGES * 2
     assert sum(s.name == "recursion.build" for s in spans) == 2
+
+
+def test_each_attestation_fills_its_rows_in_one_span(recursion_step3):
+    """One "recursion.upload" and then one "recursion.perm_rows" inside each
+    attestation's "recursion.build", the rows' span naming its slots, its
+    states (slots x child queries) and where it ran."""
+    _, spans, _ = recursion_step3
+    sp = RCFG["stark_params"]
+    rows = RCFG["chunk_trace_rows"]
+    sch = recursion.Schedule(rows, min(rows * sp["blowup"], sp["terminal_size"]))
+    slots = sum(sch.is_perm(s) for s in range(len(sch.slots)))
+    builds = [s for s in spans if s.name == "recursion.build"]
+    fills = [s for s in spans if s.name == "recursion.perm_rows"]
+    uploads = [s for s in spans if s.name == "recursion.upload"]
+    assert len(builds) == len(fills) == len(uploads) == 2
+    for build, fill, upload in zip(builds, fills, uploads):
+        assert fill.parent is build and upload.parent is build
+        assert upload.end_ns <= fill.start_ns
+        assert fill.attrs == {"slots": slots, "states": slots * sp["num_queries"],
+                              "on_card": False}
+
+
+def test_the_verifier_rows_kernels_are_not_es_in_its_roofline():
+    """kernel_e_roofline counts E's permutations of the requests' Merkle
+    commits; the verifier rows' kernels take E's constant block too, but
+    their names, as the source declares them, are not E's."""
+    from zkbench.metrics import kernel_e_roofline
+
+    declared = re.compile(r"__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(")
+
+    def profiled(name):  # the demangled name the profiler gives a launch
+        return f"(anonymous namespace)::{name}(unsigned long long*, long, ezt::poseidon2::Consts)"
+
+    rows = declared.findall((kernels.CSRC / "poseidon2_gl_rows.cu").read_text())
+    assert rows == ["verifier_walk_kernel", "verifier_rows_kernel"]
+    assert not any(kernel_e_roofline.is_e(profiled(n)) for n in rows)
+    e = declared.findall((kernels.CSRC / "poseidon2_gl.cu").read_text())
+    assert len(e) == 4 and all(kernel_e_roofline.is_e(profiled(n)) for n in e)
 
 
 def _toy(prover):
