@@ -19,8 +19,13 @@ drives as it drives an in-process prover.
 
 Requests run on the server's pool threads, one at a time per stream; the
 prover names its device explicitly, so no thread's current CUDA device
-matters.  Import this module before anything else imports grpc: it turns
-gRPC's fork handlers off (see below).
+matters.  Traced (utils/profiling.py), a client's request is the span
+"grpc.call" and the server's handling of it the span "grpc.handle" (on the
+handler thread, the step's span inside it), each with the request's kind,
+its batch id as the request id and the wire bytes of the request and the
+response, the call also its retries: the call less the handle is the hop
+(building, serialising, the channel, parsing).  Import this module before
+anything else imports grpc: it turns gRPC's fork handlers off (see below).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ os.environ.setdefault("GRPC_ENABLE_FORK_SUPPORT", "0")
 
 import grpc  # noqa: E402
 
+from ..utils import profiling
 from ..utils.config import global_env
 from ..utils.profiling import ProverTelemetry
 from .grpc_gen.prover.v1 import prover_pb2 as pb
@@ -53,6 +59,26 @@ METHOD_NAME = "ProverStream"
 
 VERSION_PROTO = "v1"
 VERSION_SERVER = "eigen-zeth-tpu-torch-0.1.0"
+
+
+def _label(sp, req: pb.ProverRequest) -> None:
+    """A request's kind (its request type, for gen_batch_proof its step)
+    and its batch id, as the request id, on a recorded span."""
+    if sp is None:
+        return
+    kind = req.WhichOneof("request_type") or ""
+    body = getattr(req, kind) if kind else None
+    if kind == "gen_batch_proof":
+        kind = body.WhichOneof("step") or ""
+        body = getattr(body, kind) if kind else None
+    sp.request, sp.attrs["kind"] = getattr(body, "batch_id", "") or None, kind
+
+
+def _sized(sp, req: pb.ProverRequest, resp: Optional[pb.ProverResponse]) -> None:
+    """The wire sizes of a request and its response on a recorded span."""
+    if sp is not None:
+        sp.attrs["request_bytes"] = req.ByteSize()
+        sp.attrs["response_bytes"] = None if resp is None else resp.ByteSize()
 
 
 def _handle_request(
@@ -172,7 +198,11 @@ class ProverServiceServer:
                     self.telemetry.enqueue(req.id)
                     self.telemetry.start(req.id)
                 try:
-                    yield _handle_request(self.prover, req, self.telemetry)
+                    with profiling.span("grpc.handle") as sp:
+                        _label(sp, req)
+                        resp = _handle_request(self.prover, req, self.telemetry)
+                        _sized(sp, req, resp)
+                    yield resp
                 finally:
                     if compute:
                         self.telemetry.finish(req.id)
@@ -228,16 +258,20 @@ class ProverStreamClient:
     def request(self, build) -> pb.ProverResponse:
         """build(req) fills one request; blocks for its response.
         Retries the same request over a fresh stream on transport error."""
-        with self._lock:
+        with self._lock, profiling.span("grpc.call") as sp:
             self._id += 1
             req = pb.ProverRequest(id=str(self._id))
             build(req)
+            _label(sp, req)
             last_err = None
             for attempt in range(self.max_retries + 1):
+                if sp is not None:
+                    sp.attrs["retries"] = attempt
                 try:
                     self._q.put(req)
                     resp = next(self._responses)
                     assert resp.id == req.id, (resp.id, req.id)
+                    _sized(sp, req, resp)
                     return resp
                 except (grpc.RpcError, StopIteration) as e:
                     last_err = e
@@ -249,6 +283,7 @@ class ProverStreamClient:
                     except Exception:
                         pass
                     self._connect()
+            _sized(sp, req, None)
             raise ConnectionError(
                 f"prover stream failed after {self.max_retries} retries"
             ) from last_err
